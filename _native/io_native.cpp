@@ -1,6 +1,6 @@
 // Native I/O library for gmrm_tpu.
 //
-// TPU-native equivalent of the reference's C++ MPI-IO data path
+// Native equivalent of the reference's C++ MPI-IO data path
 // (/root/reference/src/bayes.cpp:867-900 genotype load,
 //  /root/reference/src/utilities.hpp:29-81 chunked collective reads,
 //  /root/reference/src/phenotype.cpp:587-673 .phen parsing):

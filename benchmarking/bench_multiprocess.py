@@ -1,5 +1,4 @@
-"""Multi-process scaling measurement on the virtual CPU mesh (VERDICT r3
-item 8).
+"""Multi-process scaling measurement on the virtual CPU mesh.
 
 Fixed global problem, two process layouts of the SAME 8-device mesh:
 
@@ -17,7 +16,7 @@ the psum volume model from SCALE.md: per iteration
 
 These numbers are CPU-RELATIVE (virtual devices share 2 cores; gloo runs
 over loopback): they evidence the protocol's scaling shape — sync share
-and the cross-process overhead — not TPU-absolute throughput.  Recorded
+and the cross-process overhead — not device throughput.  Recorded
 in SCALE.md.
 
 Usage: python benchmarking/bench_multiprocess.py [--iters 12]
@@ -35,6 +34,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
+WORK = os.path.join(REPO, ".smoke")
 
 N, M, TRAITS = 2000, 4096, 2
 BLOCK = 64
@@ -56,10 +56,11 @@ pid, nprocs, port, data_dir, iters = (int(sys.argv[1]), int(sys.argv[2]),
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=%%d"
                            %% (8 // nprocs))
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, %(repo)r)
+from gmrm_tpu import compile_cache
+compile_cache.enable()
 if nprocs > 1:
     from gmrm_tpu.parallel.distributed import init_distributed
     init_distributed(coordinator_address="localhost:%%d" %% port,
@@ -136,7 +137,7 @@ def main():
     ap.add_argument("--iters", type=int, default=12)
     args = ap.parse_args()
 
-    tmp = f"/tmp/gmrm_mp_{N}x{M}_{TRAITS}"
+    tmp = f"{WORK}/mp_{N}x{M}_{TRAITS}"
     if not os.path.exists(os.path.join(tmp, "test.bed")):
         code = (
             "import sys; sys.path.insert(0, %r); "

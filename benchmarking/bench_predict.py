@@ -1,4 +1,4 @@
-"""Predict-mode benchmark (VERDICT r3 item 9).
+"""Predict-mode benchmark.
 
 The reference benches prediction separately (benchmarking/test_pred.sh;
 its predict timer is src/bayes.cpp:282-283 "time to predict").  This
@@ -22,10 +22,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
+WORK = os.path.join(REPO, ".smoke")
 
 import numpy as np
 
@@ -42,7 +42,7 @@ def main():
     from gmrm_tpu.predict import run_predict
     from gmrm_tpu.runner import run_training
 
-    out_dir = "/tmp/gmrm_bench_predict_out"
+    out_dir = f"{WORK}/bench_predict_out"
     opt = Options(
         bed_file=f"{data_dir}/test.bed", dim_file=f"{data_dir}/test.dim",
         phen_files=[f"{data_dir}/test{i+1}.phen" for i in range(TRAITS)],

@@ -1,6 +1,6 @@
 """Large-configuration benchmark driver (BASELINE.json configs 4-5).
 
-Simulates (and caches in /tmp) an N x M dataset, runs the production Gibbs
+Simulates (and caches under .smoke/) an N x M dataset, runs the production Gibbs
 step on the default device, and prints one JSON line:
 
   {"n": ..., "m": ..., "traits": ..., "iter_ms": ..., "markers_per_s": ...,
@@ -22,7 +22,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
@@ -32,7 +31,7 @@ import numpy as np
 
 def dataset(n, m, traits):
     from gmrm_tpu.io.sim import simulate
-    tmp = f"/tmp/gmrm_scale_{n}x{m}_{traits}"
+    tmp = os.path.join(REPO, ".smoke", f"scale_{n}x{m}_{traits}")
     if not os.path.exists(os.path.join(tmp, "test.bed")):
         t0 = time.perf_counter()
         simulate(tmp, n=n, m=m, n_traits=traits, n_causal=max(1, m // 4),
@@ -58,6 +57,8 @@ def main():
                          "column measurements)")
     args = ap.parse_args()
 
+    from gmrm_tpu import compile_cache
+    compile_cache.enable()
     import jax
     import jax.numpy as jnp
     from gmrm_tpu.config import Options
@@ -90,11 +91,9 @@ def main():
     t0 = time.perf_counter()
     state = init_sampler_state(data, opt, jnp.float32)
     load_s = t_load + t_static + (time.perf_counter() - t0)
-    use_pallas = jax.default_backend() not in ("cpu",)
     shared_na = all(ph.nas == 0 for ph in data.phens)
-    step = make_gibbs_step(block_size=args.block, use_pallas=use_pallas,
-                           donate=True, shared_na=shared_na,
-                           wave_size=args.wave if use_pallas else 1)
+    step = make_gibbs_step(block_size=args.block, donate=True,
+                           shared_na=shared_na, wave_size=args.wave)
 
     it = 1
     t0 = time.perf_counter()
@@ -135,7 +134,9 @@ def main():
         "warm_cache": warm_cache,
         "burn_s_per_iter": round(burn_s / max(args.burn, 1), 3),
         "hbm_bytes_in_use": hbm,
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
+        "device_count": len(jax.devices()),
     }
     print(json.dumps(out))
 

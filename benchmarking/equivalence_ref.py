@@ -28,6 +28,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
+WORK = os.path.join(REPO, ".smoke")
 
 from gmrm_tpu.io.writers import read_history  # noqa: E402
 
@@ -102,17 +103,16 @@ def summarize(tag, chain, burn_frac=0.4):
 def run_seed_pair(sim, data, binary, iterations, thin, n_traits, n_groups,
                   burn, ref_seed, our_seed, wave, tag):
     """One (reference, ours) chain pair -> list of per-trait summaries."""
-    ref_out = f"/tmp/gmrm_equiv_ref_{tag}"
+    ref_out = f"{WORK}/equiv_ref_{tag}"
     t_ref = run_reference(binary, data, ref_out, iterations, thin,
                           seed=ref_seed, n_traits=n_traits)
-    ours_out = f"/tmp/gmrm_equiv_ours_{tag}"
+    ours_out = f"{WORK}/equiv_ours_{tag}"
     _, t_ours = run_ours(
         dict(
             bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
             group_index_file=sim.gri, group_mixture_file=sim.grm,
             iterations=iterations, seed=our_seed, output_thin_rate=thin,
             block_size=128, wave_size=wave,
-            use_pallas=True if wave > 1 else None,
         ),
         ours_out,
     )
@@ -149,8 +149,8 @@ def multiseed(args):
     n_traits, n_groups, burn = args.traits, 2, 0.4
 
     from gmrm_tpu.io.sim import simulate
-    data = f"/tmp/gmrm_equiv_data_{n}x{m}_{n_traits}" \
-        if (n, m, n_traits) != (2000, 2000, 2) else "/tmp/gmrm_equiv_data"
+    data = f"{WORK}/equiv_data_{n}x{m}_{n_traits}" \
+        if (n, m, n_traits) != (2000, 2000, 2) else f"{WORK}/equiv_data"
     sim = simulate(data, n=n, m=m, n_traits=n_traits, n_causal=m // 4,
                    h2=0.5, n_groups=n_groups, na_rate=0.01, seed=20260819,
                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
@@ -182,11 +182,11 @@ def multiseed(args):
         f"1% phenotype NAs, h2=0.5 (realized "
         f"{np.round(sim.h2_realized, 3).tolist()}).",
         f"{S} independent seed pairs at the PRODUCTION cadence (block 128, "
-        f"wave {prod_wave}, fused Pallas kernels + mega-kernel) of {iterations} "
+        f"wave {prod_wave}, cached-Gram wave sweep) of {iterations} "
         f"iterations, thin {thin}, burn-in {int(burn*100)}%, plus one "
         f"exact-serial W=1 control pair.  Tolerance: |pooled h2 diff| <= "
         f"3 x hypot(SEM_ref, SEM_ours) over seeds (floor 0.015), the "
-        f"per-seed-MC-error criterion of VERDICT r2 item 5.",
+        f"per-seed Monte-Carlo-error criterion.",
         "",
         "| trait | seed | impl | h2 mean | h2 sd | sigmaE mean | beta corr"
         " (x-impl) |",
@@ -272,7 +272,7 @@ def main():
     burn = 0.4
 
     from gmrm_tpu.io.sim import simulate
-    data = "/tmp/gmrm_equiv_data"
+    data = f"{WORK}/equiv_data"
     sim = simulate(data, n=n, m=m, n_traits=n_traits, n_causal=m // 4,
                    h2=0.5, n_groups=n_groups, na_rate=0.01, seed=20260819,
                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
@@ -282,18 +282,17 @@ def main():
         subprocess.run(["make", "-C", os.path.join(REPO, "baseline")],
                        check=True, capture_output=True)
 
-    ref_out = "/tmp/gmrm_equiv_ref"
+    ref_out = f"{WORK}/equiv_ref"
     t_ref = run_reference(binary, data, ref_out, iterations, thin,
                           seed=171014, n_traits=n_traits)
 
-    ours_out = "/tmp/gmrm_equiv_ours"
+    ours_out = f"{WORK}/equiv_ours"
     _, t_ours = run_ours(
         dict(
             bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
             group_index_file=sim.gri, group_mixture_file=sim.grm,
             iterations=iterations, seed=42, output_thin_rate=thin,
             block_size=128, wave_size=args.wave,
-            use_pallas=True if args.wave > 1 else None,
         ),
         ours_out,
     )

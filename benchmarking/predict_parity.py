@@ -39,6 +39,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
+WORK = os.path.join(REPO, ".smoke")
 
 
 def train_ours(sim, out_dir, iterations=40, thin=2):
@@ -71,7 +72,7 @@ def run_ref_predict(binary, sim, bim, ref_bim, out_dir):
 
 def run_our_predict(sim, bim, ref_bim, out_dir):
     """Subprocess so JAX_ENABLE_X64 + CPU backend apply cleanly (the
-    parent may hold a TPU client); float64 end-to-end like the
+    parent may hold an accelerator client); float64 end-to-end like the
     reference's doubles."""
     cmd = [
         sys.executable, "-m", "gmrm_tpu", "--predict",
@@ -186,7 +187,7 @@ def main():
     n_traits = 2
 
     from gmrm_tpu.io.sim import simulate
-    data = f"/tmp/gmrm_predpar_data_{n}x{m}"
+    data = f"{WORK}/predpar_data_{n}x{m}"
     sim = simulate(data, n=n, m=m, n_traits=n_traits, n_causal=m // 4,
                    h2=0.5, n_groups=2, na_rate=0.01, seed=20260821,
                    mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
@@ -196,7 +197,7 @@ def main():
         subprocess.run(["make", "-C", os.path.join(REPO, "baseline")],
                        check=True, capture_output=True)
 
-    train_dir = f"/tmp/gmrm_predpar_train_{n}x{m}"
+    train_dir = f"{WORK}/predpar_train_{n}x{m}"
     train_ours(sim, train_dir, iterations=24 if args.quick else 40)
     print("# training done", flush=True)
 
@@ -208,7 +209,7 @@ def main():
                          ("B: %d ids renamed" % n_renamed, ref_bim_mis)]:
         dirs = {}
         for impl in ("ref", "ours"):
-            d = f"/tmp/gmrm_predpar_{impl}_{n}x{m}_{tag[0]}"
+            d = f"{WORK}/predpar_{impl}_{n}x{m}_{tag[0]}"
             shutil.rmtree(d, ignore_errors=True)
             shutil.copytree(train_dir, d)   # both read the SAME .bet
             dirs[impl] = d

@@ -1,4 +1,4 @@
-"""UKB-shaped multi-process rehearsal on the CPU mesh (VERDICT r4 §partial).
+"""UKB-shaped multi-process rehearsal on the CPU mesh.
 
 Full production pipeline at N gloo processes x 1 virtual device each —
 the process topology of a real pod slice (reference per-rank slices,
@@ -47,6 +47,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
+WORK = os.path.join(REPO, ".smoke")
 
 
 def free_port():
@@ -61,8 +62,9 @@ def worker_main(args):
     os.environ["XLA_FLAGS"] = \
         f"--xla_force_host_platform_device_count={args.local_devices}"
     os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
     import jax
+    from gmrm_tpu import compile_cache
+    compile_cache.enable()
     jax.config.update("jax_platforms", "cpu")
     if args.nprocs > 1:
         from gmrm_tpu.parallel.distributed import init_distributed
@@ -140,7 +142,7 @@ def main():
 
     import numpy as np
     n, m, traits, procs = args.n, args.m, args.traits, args.procs
-    data = f"/tmp/gmrm_rehearse_{n}x{m}_{traits}"
+    data = f"{WORK}/rehearse_{n}x{m}_{traits}"
     if not os.path.exists(os.path.join(data, "test.bed")):
         from gmrm_tpu.io.sim import simulate
         t0 = time.time()
@@ -149,9 +151,9 @@ def main():
                  mixtures=np.array([0.0, 0.0001, 0.001, 0.01]))
         print(f"# simulated in {time.time()-t0:.0f}s", flush=True)
 
-    out_sp = f"/tmp/gmrm_rehearse_sp_{n}x{m}"
-    out_mp = f"/tmp/gmrm_rehearse_mp_{n}x{m}"
-    out_mf = f"/tmp/gmrm_rehearse_mf_{n}x{m}"
+    out_sp = f"{WORK}/rehearse_sp_{n}x{m}"
+    out_mp = f"{WORK}/rehearse_mp_{n}x{m}"
+    out_mf = f"{WORK}/rehearse_mf_{n}x{m}"
     for o in (out_sp, out_mp, out_mf):
         subprocess.run(["rm", "-rf", o], check=True)
 

@@ -1,4 +1,4 @@
-"""Wave-relaxation validation on LD-STRUCTURED genotypes (ADVICE r3).
+"""Wave-relaxation validation on LD-STRUCTURED genotypes.
 
 Concern: under the block-preserving shuffle, block membership is fixed
 across iterations, so genomically adjacent high-LD markers stay in the
@@ -11,13 +11,13 @@ r^2.
 
 Protocol: SEEDS independent chains of the exact serial sampler (W=1 —
 bit-matches the float64 oracle) vs the production wave sampler (W=32,
-block-preserving shuffle, mega-kernel).  Compare posterior means of h2 /
+block-preserving shuffle, cached Gram).  Compare posterior means of h2 /
 sigmaG / m0 over the second half of the chain, plus beta posterior-mean
 correlation against the simulated truth.  PASS when the W=32 pooled
 means sit within 3 combined standard errors of W=1 (the same criterion
 as equivalence_ref.py) and the beta recovery is not degraded.
 
-Run on the TPU chip (CPU interpret mode is ~100x slower):
+Run on the GPU:
   python benchmarking/validate_ld.py [--iters 400] [--seeds 3]
 """
 
@@ -29,10 +29,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
+WORK = os.path.join(REPO, ".smoke")
 
 import numpy as np
 
@@ -52,6 +52,8 @@ def adjacent_r2(sim):
 
 
 def run_chain(sim, seed, wave, iters):
+    from gmrm_tpu import compile_cache
+    compile_cache.enable()
     import jax
     import jax.numpy as jnp
     from gmrm_tpu.config import Options
@@ -64,7 +66,7 @@ def run_chain(sim, seed, wave, iters):
         bed_file=sim.bed, dim_file=sim.dim, phen_files=sim.phens,
         group_index_file=sim.gri, group_mixture_file=sim.grm,
         iterations=iters, seed=seed, block_size=128, wave_size=wave,
-        use_pallas=True, output_thin_rate=10 ** 9,
+        output_thin_rate=10 ** 9,
     )
     opt.validate()
     opt.load_group_mixtures()
@@ -72,7 +74,7 @@ def run_chain(sim, seed, wave, iters):
     static = build_static(data, opt, jnp.float32)
     state = init_sampler_state(data, opt, jnp.float32)
     shared_na = all(ph.nas == 0 for ph in data.phens)
-    step = make_gibbs_step(block_size=128, use_pallas=True, donate=True,
+    step = make_gibbs_step(block_size=128, donate=True,
                            shared_na=shared_na, wave_size=wave)
     half = iters // 2
     h2s, sgs, m0s = [], [], []
@@ -105,14 +107,14 @@ def main():
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--n", type=int, default=N,
                     help="individuals (production-shape rows: --n 10000 "
-                         "--m 100000, VERDICT r4 item 7)")
+                         "--m 100000)")
     ap.add_argument("--m", type=int, default=M)
     ap.add_argument("--rho", type=float, default=RHO)
     args = ap.parse_args()
     N, M, RHO = args.n, args.m, args.rho
 
     from gmrm_tpu.io.sim import simulate
-    tmp = f"/tmp/gmrm_ld_{N}x{M}_{TRAITS}"
+    tmp = f"{WORK}/ld_{N}x{M}_{TRAITS}"
     sim = simulate(tmp, n=N, m=M, n_traits=TRAITS, n_causal=M // 8,
                    h2=0.5, n_groups=1, na_rate=0.0, seed=20260821,
                    ld_rho=RHO,

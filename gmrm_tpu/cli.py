@@ -4,7 +4,7 @@ Flags (reference ``src/options.cpp:26-151``): --bed-file --dim-file
 --phen-files --group-index-file --group-mixture-file --verbosity
 --shuffle-markers --mimic-hydra --seed --iterations --trunc-markers --S
 --out-dir --output-thin-rate --predict --bim-file --ref-bim-file, plus
-TPU-native knobs (--block-size --dtype --devices --use-pallas).
+accelerator knobs (--block-size --wave-size --dtype --devices).
 
 ``--S`` is accepted and ignored, like the reference (parsed but unused by
 the sampler; options.cpp:105-118).  ``--mimic-hydra`` enforces the single-
@@ -23,8 +23,8 @@ from gmrm_tpu.config import Options, OptionsError
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gmrm-tpu",
-        description="TPU-native Bayesian grouped mixture-of-regressions "
-                    "(BayesR) Gibbs sampler for GWAS",
+        description="Accelerator-native Bayesian grouped "
+                    "mixture-of-regressions (BayesR) Gibbs sampler for GWAS",
     )
     p.add_argument("--bed-file", default="")
     p.add_argument("--dim-file", default="")
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--predict", action="store_true")
     p.add_argument("--bim-file", default="")
     p.add_argument("--ref-bim-file", default="")
-    # TPU-native knobs
+    # Accelerator knobs (no reference analog)
     p.add_argument("--block-size", type=int, default=128,
                    help="markers per Gram block (residual sync cadence); "
                         "128 is the validated production configuration")
@@ -53,13 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "serial recursion; W>1 relaxes like W co-scheduled "
                         "shards — the reference's own multi-rank semantics). "
                         "Default: auto — the validated production wave (32) "
-                        "on device, 1 on CPU backends")
+                        "on an accelerator, 1 on CPU backends")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"])
     p.add_argument("--devices", type=int, default=0,
                    help="number of devices for the marker mesh (0 = all)")
-    p.add_argument("--use-pallas", type=int, default=-1,
-                   help="-1 auto, 0 off, 1 on")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="save a resumable chain checkpoint every N "
                         "iterations (0 = off; improvement over the "
@@ -95,7 +93,6 @@ def options_from_args(args) -> Options:
         wave_size=args.wave_size,
         dtype=args.dtype,
         n_devices=args.devices,
-        use_pallas=None if args.use_pallas < 0 else bool(args.use_pallas),
         checkpoint_every=args.checkpoint_every,
         resume=args.resume,
         cache_dir=args.cache_dir,
@@ -119,6 +116,8 @@ def main(argv=None) -> int:
         return 1
 
     import jax
+    from gmrm_tpu import compile_cache
+    compile_cache.enable()
 
     try:
         if opt.predict:

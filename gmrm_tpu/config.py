@@ -1,9 +1,9 @@
-"""Run configuration: the TPU-native equivalent of the reference CLI options.
+"""Run configuration: the equivalent of the reference CLI options.
 
-Mirrors the flag surface of ``/root/reference/src/options.{hpp,cpp}``
+Mirrors the flag surface of the reference's ``src/options.{hpp,cpp}``
 (flags at ``options.cpp:26-151``, validation at ``options.cpp:175-220``,
-group-mixture parsing at ``options.cpp:222-286``) plus TPU-specific knobs
-(block size, dtype, device count) that have no reference analog.
+group-mixture parsing at ``options.cpp:222-286``) plus accelerator knobs
+(block size, wave size, dtype, device count) that have no reference analog.
 """
 
 from __future__ import annotations
@@ -17,11 +17,6 @@ import numpy as np
 
 class OptionsError(ValueError):
     """Raised for invalid or inconsistent run options."""
-
-
-_BLOCK_CEILING_MSG = ("option --block-size above 512 requires --use-pallas 0 "
-                      "(the (2B)^2 Gram scratch exceeds VMEM in every "
-                      "pallas path; the XLA path has no limit)!")
 
 
 @dataclass
@@ -46,17 +41,16 @@ class Options:
     output_thin_rate: int = 1
     predict: bool = False
 
-    # TPU-native knobs (no reference analog)
+    # Accelerator knobs (no reference analog)
     block_size: int = 128           # markers per Gram block (sync cadence)
     wave_size: Optional[int] = None  # markers per serial step within a block
                                     # (1 = exact serial; W>1 = the same
                                     # relaxation as W co-scheduled shards,
-                                    # see ops/scan_kernel_wave.py).  None =
-                                    # auto: the validated production wave
-                                    # (32, EQUIVALENCE.md) when Pallas is
-                                    # on and divides block_size, else 1.
+                                    # see sampler/scan.py).  None = auto:
+                                    # the validated production wave (32,
+                                    # EQUIVALENCE.md) on an accelerator
+                                    # when it divides block_size, else 1.
     dtype: str = "float32"          # compute dtype for residual/accumulations
-    use_pallas: Optional[bool] = None  # None = auto (TPU yes, CPU no)
     n_devices: int = 0              # 0 = all visible devices
     checkpoint_every: int = 0       # 0 = no checkpointing (improvement over ref)
     resume: bool = False
@@ -115,14 +109,6 @@ class Options:
             raise OptionsError("option --block-size has to be a strictly positive integer!")
         if self.wave_size is not None and self.wave_size < 1:
             raise OptionsError("option --wave-size has to be a strictly positive integer (or omitted for auto)!")
-        if self.block_size > 512 and self.use_pallas is True:
-            # EVERY pallas path (wave kernels AND the W=1 per-block Gram
-            # kernel, ops/pallas_kernels.py) holds (2B)^2 f32 Gram
-            # quadrants in VMEM: 4.2 MB at B=512, 16.8 MB at B=1024 —
-            # over the 16 MB scoped limit.  use_pallas None (auto) is
-            # checked after resolution in resolve_compute_plan — it may
-            # legally resolve to off.
-            raise OptionsError(_BLOCK_CEILING_MSG)
 
     def verbosity_level(self, level: int) -> bool:
         """True when detail prints at ``level`` are enabled — the
@@ -130,41 +116,25 @@ class Options:
         return level <= self.verbosity
 
     def resolve_compute_plan(self) -> None:
-        """Resolve the auto (None) TPU knobs against the active backend.
+        """Resolve the auto (None) wave against the active backend.
 
         The validated production configuration (block 128 / wave 32,
-        benchmarking/EQUIVALENCE.md + PROFILE.md) is the default on
-        device; wave auto-downgrades to the exact-serial recursion (1)
-        on CPU backends, when Pallas is off, or when the requested wave
-        does not divide the block size.  Idempotent.
+        benchmarking/EQUIVALENCE.md) is the default on an accelerator;
+        the auto wave is the exact-serial recursion (1) on CPU backends.
+        Any wave that does not divide the block size falls back to 1.
+        Idempotent.
         """
-        if self.use_pallas is None:
-            import jax
-            self.use_pallas = jax.default_backend() not in ("cpu",)
-        if self.block_size > 512 and self.use_pallas:
-            raise OptionsError(_BLOCK_CEILING_MSG)
         if self.wave_size is None:
+            import jax
             self.wave_auto = True
             self.wave_size = 1
-            if self.use_pallas:
+            if jax.default_backend() != "cpu":
                 for w in (32, 16, 8):
                     if self.block_size % w == 0:
                         self.wave_size = w
                         break
-        if not self.use_pallas or self.block_size % self.wave_size != 0:
+        if self.block_size % self.wave_size != 0:
             self.wave_size = 1
-
-    def check_group_limit(self) -> None:
-        """The fused pallas kernels carry group ids through bf16 one-hot
-        permutes (exact < 256) and unroll a select per group — a
-        >256-group .grm must run the XLA path.  Surfaced here as an
-        OptionsError instead of an in-kernel AssertionError mid-chain
-        (code-review r5); called once mixtures AND the compute plan are
-        both resolved."""
-        if self.cva is not None and self.n_groups > 256 and self.use_pallas:
-            raise OptionsError(
-                "more than 256 annotation groups requires --use-pallas 0 "
-                "(bf16 group-id carry limit in the fused kernels)!")
 
     def guard_wave_blocks(self, m_local: int, verbose: bool = True) -> int:
         """Block count this shard will run with; auto-downgrades an
@@ -175,7 +145,7 @@ class Options:
         positions; below ~64 blocks extreme local LD can still
         destabilize W=32 (benchmarking/LD_VALIDATION.md stress tests:
         rho=0.99 / 16 blocks DIVERGES).  A default that can NaN on valid
-        input is not acceptable (VERDICT r4 weak 1), so the auto plan
+        input is not acceptable, so the auto plan
         falls back to W=1; an EXPLICIT --wave-size keeps the user's
         choice with a warning, and the in-chain divergence guard
         (runner._check_finite) still fails loudly.  Production marker

@@ -21,6 +21,10 @@ from gmrm_tpu.io.bed import write_bed
 # path at toy sizes).
 INMEM_LIMIT = 200_000_000
 
+# bed code per dosage: dosage 2 -> code 0, dosage 1 -> code 2,
+# dosage 0 -> code 3.
+_CODE_OF_DOSAGE = np.array([3, 2, 0], np.uint8)
+
 
 @dataclass
 class SimResult:
@@ -84,14 +88,12 @@ def simulate(
         return hap.sum(axis=0).T.astype(np.uint8), z    # (count, N)
 
     if m * n <= INMEM_LIMIT:
-        # Genotype codes on the dosage scale {0,1,2}; bed code mapping:
-        # dosage 2 -> code 0, dosage 1 -> code 2, dosage 0 -> code 3.
+        # Genotype codes on the dosage scale {0,1,2}.
         if ld_rho > 0.0:
             dosage, _ = ld_dosage_chunk(None, m)          # (M, N)
         else:
             dosage = rng.binomial(2, maf, size=(m, n)).astype(np.uint8)
-        code = np.where(dosage == 2, 0,
-                        np.where(dosage == 1, 2, 3)).astype(np.uint8)
+        code = _CODE_OF_DOSAGE[dosage]
 
         # Standardize columns of X (markers) for the effect model.
         xm = dosage.astype(np.float64)
@@ -140,9 +142,7 @@ def simulate(
                 if nz.size:
                     xs = (xm[nz] - mu[nz]) / sd[nz]
                     g += xs.T @ bc[nz]
-                code = np.where(dosage == 2, 0,
-                                np.where(dosage == 1, 2, 3)).astype(np.uint8)
-                pack_codes(code).tofile(fh)
+                pack_codes(_CODE_OF_DOSAGE[dosage]).tofile(fh)
 
     vg = g.var(axis=0)
     ve = np.maximum(1.0 - vg, 1e-3)

@@ -4,4 +4,10 @@ from gmrm_tpu.ops.decode import (
     from_phase_planes,
     phase_pad_len,
 )
-from gmrm_tpu.ops.blockops import block_gram, block_eps_update, marker_stats_jax
+from gmrm_tpu.ops.blockops import (
+    block_cdot,
+    block_eps_update,
+    block_gram,
+    build_gram_cache,
+    marker_stats_jax,
+)

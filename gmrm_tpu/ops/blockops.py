@@ -1,35 +1,39 @@
-"""Fused block operations: the MXU-facing compute path of the sampler.
+"""Fused block operations: the matrix-product path of the sampler.
 
-These three ops carry all the O(N) work of the Gibbs sweep (the reference's
-hot loops: dot product ``src/bayes.cpp:709-770``, rank-1 residual update
+These ops carry all the O(N) work of the Gibbs sweep (the reference's hot
+loops: dot product ``src/bayes.cpp:709-770``, rank-1 residual update
 ``src/phenotype.cpp:326-393``, marker statistics
-``src/phenotype.cpp:466-556``), restructured as block matmuls:
+``src/phenotype.cpp:466-556``), restructured as block matrix products:
 
-- ``block_gram``: for a block of B markers, compute ``c = Xc @ eps`` and the
-  NA-masked Gram matrix ``G = (Xc*na) @ Xc^T`` with the 2-bit decode fused
-  in.  These two quantities make the within-block serial scan O(B) per
-  marker instead of O(N).
+- ``block_cdot``: for a block of B markers, ``c = Xc @ eps`` with the 2-bit
+  decode fused in (the x^T eps stream).
+- ``block_gram``: ``c`` plus the NA-masked Gram ``G = (Xc*na) @ Xc^T``.
+  Together they make the within-block serial scan O(B) per marker
+  instead of O(N).
+- ``build_gram_cache``: the raw Gram quadrants of every natural block,
+  built once (X never changes), which the wave sweep permutes and scales
+  instead of recomputing ``block_gram`` each iteration.
 - ``block_eps_update``: apply the accumulated rank-1 updates of a block as
   one matvec ``eps += Xc^T @ (msig*dbeta) * na``.
 - ``marker_stats_jax``: one fused pass for per-marker mean / inverse-sd.
 
-MXU strategy (float32 path): the decoded planes are exact small integers
-(a in {0,1,2}, b in {0,1}, na in {0,1}), so every product of two decoded
-planes is exact in bfloat16 with float32 accumulation — integer sums stay
-below 2^24.  The centered Gram
+Exactness strategy (float32 path): the decoded planes are exact small
+integers (a in {0,1,2}, b in {0,1}, na in {0,1}), so every product of two
+decoded planes is exact in bfloat16 with float32 accumulation — integer
+sums stay below 2^24.  The centered Gram
 
     G[j,i] = sum_n na * (a_j - m_j b_j)(a_i - m_i b_i)
 
-is therefore expanded into three *exact* bf16 matmuls (A·A^T, B·A^T, B·B^T
-with the na mask folded into the left operand) and recombined with the
-means on the VPU — one MXU pass each instead of the 6-pass
-``Precision.HIGHEST`` f32 einsum.  Continuous operands (eps, dbeta) are
-split into bf16 hi+lo pairs (Dekker split across formats: hi = bf16(x) and
-x - hi is exact in f32, so two bf16 passes reconstruct x to ~2^-17
-relative), keeping those matmuls at MXU speed too.
+is therefore expanded into three *exact* bf16 products (A·A^T, B·A^T,
+B·B^T with the na mask folded into the left operand) and recombined with
+the means elementwise — one bf16 tensor-core pass each instead of a
+multi-pass ``Precision.HIGHEST`` f32 einsum.  Continuous operands (eps,
+dbeta) are split into bf16 hi+lo pairs (Dekker split across formats: hi =
+bf16(x) and x - hi is exact in f32, so two bf16 passes reconstruct x to
+~2^-17 relative), keeping those products on the bf16 path too.
 
 The float64 path keeps plain HIGHEST-precision einsums (it exists for
-CPU oracle-grade runs, not for TPU throughput).
+oracle-grade runs, not for throughput).
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# This JAX build lowers f32 matmuls at bf16 precision by default (TPU MXU
-# convention); the float64 fallback path needs true wide accumulation.
+# f32/f64 contractions must not drop to reduced-precision passes (TF32 on
+# GPUs); the float64 path needs true wide accumulation.
 _PREC = jax.lax.Precision.HIGHEST
 
 from gmrm_tpu.ops.decode import decode_planes_jax
@@ -47,16 +51,22 @@ _BF16 = jnp.bfloat16
 _F32 = jnp.float32
 
 
-def _split_hi_lo(x):
+def split_hi_lo(x):
     """Dekker split of an f32 array into two bf16 arrays with
-    hi + lo ~= x to ~2^-17 relative."""
-    hi = x.astype(_BF16)
-    lo = (x - hi.astype(_F32)).astype(_BF16)
-    return hi, lo
+    hi + lo ~= x to ~2^-17 relative.
+
+    hi is x rounded to bf16 (nearest, ties to even) in integer arithmetic
+    on the bit pattern: XLA may drop an f32 -> bf16 -> f32 round trip as
+    excess precision (GPU backends do), which would zero lo."""
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+    bits = (bits + jnp.uint32(0x7FFF) + ((bits >> 16) & 1)) \
+        & jnp.uint32(0xFFFF0000)
+    hi = jax.lax.bitcast_convert_type(bits, _F32)
+    return hi.astype(_BF16), (x - hi).astype(_BF16)
 
 
 def _mm(x, y, sub):
-    """einsum with f32 accumulation on the MXU (single bf16 pass)."""
+    """einsum of bf16 operands with f32 accumulation (one bf16 pass)."""
     return jnp.einsum(sub, x, y, preferred_element_type=_F32)
 
 
@@ -69,63 +79,111 @@ def _xc(bed_block, mave, dtype):
     return a[None] - mave[:, :, None, None] * b[None]      # (T, B, 4, mb)
 
 
-def block_gram(bed_block, eps, na, mave, *, dtype=jnp.float32,
-               shared_na: bool = False):
-    """Raw dot products and Gram matrix for one marker block.
+def block_cdot(bed_block, eps, mave, *, dtype=jnp.float32):
+    """Raw dot products x^T eps for one marker block.
 
     Args:
       bed_block: (B, mb) uint8 packed genotypes.
       eps: (T, 4, mb) residual phase planes (zeros at NAs and padding).
-      na:  (T, 4, mb) 0/1 phenotype-observed masks.
       mave: (T, B) per-trait marker means for the block.
-      shared_na: static hint that every trait's na mask is identical
-        (no phenotype NAs) — the Gram then collapses to one trait's worth
-        of matmuls.
+
+    Returns craw (T, B) = sum_i xc[t,j,i] * eps[t,i] (the un-scaled
+    x^T eps; the NA mask is implicit because eps is 0 there — matching the
+    reference dot product which also omits it, bayes.cpp:709-770).
+    """
+    if dtype != jnp.float32:
+        xc = _xc(bed_block, mave, dtype)                   # (T, B, 4, mb)
+        return jnp.einsum("tbkm,tkm->tb", xc, eps,
+                          preferred_element_type=dtype, precision=_PREC)
+    B = bed_block.shape[0]
+    T = eps.shape[0]
+    a, b = decode_planes_jax(bed_block, dtype=_BF16)       # exact integers
+    ab = jnp.concatenate([a, b], axis=0)                   # (2B, 4, mb)
+    eps_hi, eps_lo = split_hi_lo(eps.astype(_F32))
+    # craw = A·eps - mave ⊙ (B·eps), eps reconstructed from its bf16 split —
+    # ONE product over [A;B] with hi/lo stacked on the rhs: the sweep is
+    # bound by passes over the bed.
+    cab = _mm(ab, jnp.concatenate([eps_hi, eps_lo], axis=0),
+              "bkm,skm->bs")                               # (2B, 2T)
+    ca = cab[:B, :T] + cab[:B, T:]                         # (B, T)
+    cb = cab[B:, :T] + cab[B:, T:]
+    return (ca - cb * mave.T).T                            # (T, B)
+
+
+def block_gram(bed_block, eps, na, mave, *, dtype=jnp.float32,
+               shared_na: bool = False):
+    """Raw dot products and Gram matrix for one marker block.
+
+    Args as :func:`block_cdot`, plus na (T, 4, mb) 0/1 phenotype-observed
+    masks; ``shared_na`` is a static hint that every trait's na mask is
+    identical (no phenotype NAs) — the Gram then collapses to one trait's
+    worth of products.
 
     Returns:
-      craw: (T, B) = sum_i xc[t,j,i] * eps[t,i]   (the un-scaled x^T eps;
-            the NA mask is implicit because eps is 0 there — matching the
-            reference dot product which also omits it, bayes.cpp:709-770).
+      craw: (T, B), as :func:`block_cdot`.
       graw: (T, B, B) = sum_i na[t,i] * xc[t,j,i] * xc[t,j',i].
     """
     if dtype != jnp.float32:
         return _block_gram_wide(bed_block, eps, na, mave, dtype=dtype)
 
     B = bed_block.shape[0]
-    T = eps.shape[0]
+    craw = block_cdot(bed_block, eps, mave, dtype=dtype)
     a, b = decode_planes_jax(bed_block, dtype=_BF16)       # exact integers
     ab = jnp.concatenate([a, b], axis=0)                   # (2B, 4, mb)
-    eps_hi, eps_lo = _split_hi_lo(eps.astype(_F32))
-
-    # craw = A·eps - mave ⊙ (B·eps), eps reconstructed from its bf16 split —
-    # ONE matmul pass over [A;B] with hi/lo stacked on the rhs.  The sweep
-    # is HBM-pass-bound, so every fused pass matters (~560 GB/s measured).
-    cab = _mm(ab, jnp.concatenate([eps_hi, eps_lo], axis=0),
-              "bkm,skm->bs")                               # (2B, 2T)
-    ca = cab[:B, :T] + cab[:B, T:]                         # (B, T)
-    cb = cab[B:, :T] + cab[B:, T:]
-    craw = (ca - cb * mave.T).T                            # (T, B)
 
     # Gram pieces: G1 = Σ na a_j a_i, G2 = Σ na b_j a_i, G3 = Σ na b_j b_i;
     # G[t,j,i] = G1 - m_ti G2[i,j] - m_tj G2[j,i] + m_tj m_ti G3[j,i].
     # All three come out of ONE [A;B]·[A;B]^T pass (quadrants of Gfull).
     if shared_na:
         na0 = na[0].astype(_BF16)                          # (4, mb), 0/1
-        gfull = _mm(ab * na0, ab, "bkm,ckm->bc")           # (2B, 2B)
-        g1 = gfull[:B, :B][None]                           # (1, B, B)
-        g2 = gfull[B:, :B][None]
-        g3 = gfull[B:, B:][None]
+        gfull = _mm(ab * na0, ab, "bkm,ckm->bc")[None]     # (1, 2B, 2B)
     else:
         nab = na.astype(_BF16)
         ln = ab[None] * nab[:, None]                       # (T, 2B, 4, mb)
         gfull = _mm(ln, ab, "tbkm,ckm->tbc")               # (T, 2B, 2B)
-        g1 = gfull[:, :B, :B]
-        g2 = gfull[:, B:, :B]
-        g3 = gfull[:, B:, B:]
+    return craw, gram_from_quadrants(gfull, mave).astype(dtype)
+
+
+def gram_from_quadrants(gfull, mave):
+    """Centered Gram (T, B, B) from raw [A;B]·[A;B]^T quadrants
+    ``gfull`` (NT, 2B, 2B), NT in {1, T}: elementwise, so exact to f32
+    rounding of the recombination."""
+    B = mave.shape[1]
+    g1 = gfull[:, :B, :B]
+    g2 = gfull[:, B:, :B]
+    g2t = gfull[:, :B, B:]
+    g3 = gfull[:, B:, B:]
     mj = mave[:, :, None]
     mi = mave[:, None, :]
-    graw = g1 - mi * jnp.swapaxes(g2, -1, -2) - mj * g2 + (mj * mi) * g3
-    return craw, graw.astype(dtype)
+    return g1 - mi * g2t - mj * g2 + (mj * mi) * g3
+
+
+def build_gram_cache(bed, na, *, block_size, shared_na):
+    """Precompute raw Gram quadrants for every natural block.
+
+    bed (m_pad, mb) u8 natural order; na (T, 4, mb).  Returns
+    (nblocks, NT, 2B, 2B) f32 with NT = 1 under ``shared_na`` else T.
+    O(M N B) once, as bf16 tensor-core products; the sweep then pays only
+    an O(M B^2) load + permute per iteration.
+
+    Every entry is an exact non-negative integer count < 2^24 (codes <= 2
+    and na in {0,1} are exact in bf16, so every product is, and f32
+    accumulation of such integers is order-independent), so the cache is
+    bit-identical to a float64 count whatever order the reduction takes.
+    """
+    m_pad, mb = bed.shape
+    B = block_size
+    if m_pad % B:
+        raise ValueError(f"marker rows {m_pad} not a multiple of block "
+                         f"size {B}")
+    na_b = (na[:1] if shared_na else na).astype(_BF16)
+
+    def per_block(bed_blk):                       # (B, mb) u8
+        a, b = decode_planes_jax(bed_blk, dtype=_BF16)
+        ab = jnp.concatenate([a, b], axis=0)      # (2B, 4, mb) bf16
+        return _mm(ab[None] * na_b[:, None], ab, "tbkm,ckm->tbc")
+
+    return jax.lax.map(per_block, bed.reshape(m_pad // B, B, mb))
 
 
 def _block_gram_wide(bed_block, eps, na, mave, *, dtype):
@@ -157,8 +215,8 @@ def block_eps_update(bed_block, dbeta_scaled, na, mave, *, dtype=jnp.float32):
     ab = jnp.concatenate([a, b], axis=0)                   # (2B, 4, mb)
     d = dbeta_scaled.astype(_F32)
     md = mave * d
-    d_hi, d_lo = _split_hi_lo(d)
-    md_hi, md_lo = _split_hi_lo(md)
+    d_hi, d_lo = split_hi_lo(d)
+    md_hi, md_lo = split_hi_lo(md)
     # deps = A^T d - B^T (mave ⊙ d) = [d, -md]·[A;B], hi/lo rows stacked —
     # one matmul pass over [A;B].
     lhs = jnp.concatenate([

@@ -1,14 +1,15 @@
 """2-bit PLINK genotype decode and the phase-plane device layout.
 
 The reference decodes bed bytes through 256-entry lookup tables
-(``src/dotp_lut.hpp``, generated by ``src/lut/mk_lut.cpp:25-65``).  On TPU a
-gather-per-byte is hostile to the VPU; instead we decode arithmetically with
-shifts/masks, which XLA fuses into the consuming matmuls.
+(``src/dotp_lut.hpp``, generated by ``src/lut/mk_lut.cpp:25-65``).  Here
+the decode is arithmetic, with shifts and masks that XLA can fuse into the
+consuming matrix products instead of a gather per byte.
 
 Phase-plane layout: a packed byte j holds individuals ``4j+k`` in bits
-``2k..2k+1``.  Unpacking to standard individual order would interleave lanes
-(a relayout on TPU), so all device-side individual-axis vectors (residuals,
-NA masks) are stored as ``(4, mbytes)`` *phase planes*: plane k holds
+``2k..2k+1``.  Unpacking to standard individual order would interleave the
+four codes of every byte (a relayout pass), so all device-side
+individual-axis vectors (residuals, NA masks) are stored as
+``(4, mbytes)`` *phase planes*: plane k holds
 individuals ``k, 4+k, 8+k, ...``.  Every consumer reduces over individuals,
 so the permutation is semantically invisible; host I/O converts at the
 boundary with to/from_phase_planes.

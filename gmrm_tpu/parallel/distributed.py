@@ -1,10 +1,10 @@
 """Multi-process (multi-host) initialization.
 
-TPU-native replacement for MPI_Init + per-rank topology discovery
-(reference src/main.cpp:10, src/dimensions.cpp): on a real pod slice
-``init_distributed()`` with no arguments lets JAX discover the topology
-from the TPU environment; for explicit clusters (or CPU simulation) pass
-coordinator/num_processes/process_id.
+The replacement for MPI_Init + per-rank topology discovery (reference
+src/main.cpp:10, src/dimensions.cpp): pass coordinator ("host:port"),
+num_processes and process_id; with no arguments JAX tries to discover the
+cluster from its environment, which works only where a cluster manager
+describes one.
 
 After initialization, ``jax.devices()`` is the global device list and
 ``gmrm_tpu.parallel.runner.run_training_sharded`` automatically loads,
@@ -26,9 +26,9 @@ def init_distributed(
 ) -> None:
     """Join this process into the global JAX runtime.
 
-    On TPU pods all arguments are auto-discovered (pass nothing).  For
-    manual clusters / CPU simulation pass coordinator ("host:port"),
-    num_processes, and process_id.
+    Pass coordinator ("host:port"), num_processes, and process_id for
+    manual clusters, several processes on one host, or CPU simulation;
+    pass nothing only where a cluster manager lets JAX discover them.
     """
     kwargs = {}
     if coordinator_address is not None:

@@ -27,9 +27,14 @@ import jax.numpy as jnp
 import jax.random as jr
 
 from gmrm_tpu.config import V0E, S02E, V0G, S02G
-from gmrm_tpu.ops.blockops import block_gram, block_eps_update
+from gmrm_tpu.ops.blockops import (
+    block_eps_update, block_gram, gram_from_quadrants,
+)
+from gmrm_tpu.ops.triton_kernels import (
+    block_cdot_rows, block_eps_update_rows,
+)
 from gmrm_tpu.sampler.dists import inv_scaled_chisq
-from gmrm_tpu.sampler.scan import block_scan
+from gmrm_tpu.sampler.scan import block_scan, block_scan_wave
 from gmrm_tpu.sampler.state import SamplerState, StaticInputs
 
 
@@ -43,19 +48,6 @@ def _psum(x, axis_name):
     return jax.lax.psum(x, axis_name) if axis_name else x
 
 
-def _natural_cass(comp_new, group_of, sigmag, m_local, m_pad, G, K):
-    """Per-(group, component) counts over LIVE markers (valid and in a
-    non-dead group) from natural-order components — the .csv cass
-    ingredient (reference bayes.cpp:583-589)."""
-    valid_nat = jnp.arange(m_pad) < m_local
-    sg_nat = jnp.take_along_axis(sigmag, group_of[None, :], axis=1)
-    live_nat = valid_nat[None, :] & (sg_nat != 0.0)
-    onehot_k = jax.nn.one_hot(comp_new, K, dtype=jnp.int32)
-    onehot_g = jax.nn.one_hot(group_of, G, dtype=jnp.int32)
-    return jnp.einsum(
-        "tmk,mg->tgk", onehot_k * live_nat[:, :, None], onehot_g)
-
-
 def marker_sweep(
     eps, betas, comp, acum,
     sigmag, sigmae, pi_est,
@@ -65,52 +57,39 @@ def marker_sweep(
     z_all,                  # (nblocks, T, B) std normals
     *,
     axis_name: Optional[str] = None,
-    use_pallas: bool = False,
     shared_na: bool = False,
     wave_size: int = 1,
-    pallas_gram: bool = True,
-    pallas_upd: bool = False,
-    megakernel=None,
-    block_perm=None,
-    gram_cached=None,
-    fused=None,
     elide_collectives: bool = False,
 ):
     """The full marker sweep (reference loop bayes.cpp:375-553) over Gram
     blocks, with all randomness injected — directly comparable to the NumPy
     serial oracle.  Returns (eps, betas, comp, acum, cass_local).
 
-    ``elide_collectives`` keeps every path-selection gate on ``axis_name``
-    but skips the actual psums — a TIMING-ONLY variant whose results are
-    wrong across shards (each device sweeps on its local deltas alone).
-    Used by ``parallel.runner.measure_sync_seconds`` to measure the true
-    in-step collective cost differentially.
+    Two paths, chosen by ``wave_size``:
 
-    ``fused`` (None = auto: on under ``axis_name``) selects the fused
-    per-block kernel for the non-mega sweep: ONE pallas_call per block
-    (ops/sweep_kernel.py block_sweep_pallas — all prep in-kernel, deps
-    emitted for the unchanged per-block psum cadence), replacing the
-    composed 3-kernel chain that made the pod path ~2.5x slower per
-    block than the mega path.  Requires the cached-Gram prerequisites
-    and the resident-kernel VMEM budget.
+    - W = 1, exact serial: ``blocks`` is any permutation of [0, m_pad).
+      Every marker-indexed operand, the bed included, is permuted once and
+      each block's Gram is recomputed from the bed (blockops.block_gram).
+    - W > 1, wave relaxation (sampler.scan.block_scan_wave): ``blocks``
+      must be block-preserving — row b holds natural block pi_b's markers
+      in a shuffled order ``win`` (gibbs_iteration draws it so).  The bed
+      never moves: each block is sliced in place, and its Gram comes from
+      ``static.gram_cache`` (built once — X never changes and block
+      membership is fixed), permuted by ``win`` and scaled.  Without a
+      cache the Gram is recomputed as on the serial path.
 
-    ``gram_cached`` (None = auto) selects the cached-Gram composed path:
-    the per-block Gram comes from ``static.gram_cache`` (built once — X
-    never changes and block membership is fixed under the
-    block-preserving shuffle) permuted/scaled in XLA, and only the
-    residual dot products stream over the bed.  This removes the
-    per-iteration O(Mt N B) Gram recompute on every path the mega-kernel
-    cannot take: the sharded multi-device sweep (per-block psum cadence
-    unchanged) and single-device problems whose rows exceed VMEM.
-    ``gram_cached=False`` forces the full recompute (A/B gates).
+    Per block, only the x^T eps dot products and the residual update
+    stream over the bed — on a CUDA device in float32 through the fused
+    decode kernels of ops/triton_kernels.py, which read the block's rows
+    in place.  Under ``axis_name`` the block's residual delta is psum'd
+    across shards (the reference's Allgatherv replay).
+
+    ``elide_collectives`` skips the psums: a TIMING-ONLY variant whose
+    results are wrong across shards (each device sweeps on its local
+    deltas alone), used by ``parallel.runner.measure_sync_seconds``.
 
     ``shared_na`` is a static hint that all traits share one NA mask (no
     phenotype NAs) — it collapses the per-trait Gram to a single one.
-
-    ``wave_size`` > 1 (Pallas path only) processes markers in waves of W
-    per serial step — the same relaxation as W co-scheduled shards (the
-    reference's own multi-rank semantics, bayes.cpp:375-553); W=1 is the
-    exact serial recursion.  See ops/scan_kernel_wave.py.
     """
     na = static.na
     nonas = static.nonas.astype(eps.dtype)
@@ -120,49 +99,15 @@ def marker_sweep(
     nblocks, B = blocks.shape
     T = betas.shape[0]
     m_pad = nblocks * B
-
-    scan_fn = block_scan
-    if use_pallas:
-        if wave_size > 1:
-            from gmrm_tpu.ops.scan_kernel_wave import make_block_scan_wave
-            scan_fn = make_block_scan_wave(wave_size)
-        else:
-            from gmrm_tpu.ops.scan_kernel import block_scan_pallas
-            scan_fn = block_scan_pallas
-
-    if use_pallas and pallas_gram:
-        # Fused decode+Gram+scaling and decode+update kernels: packed bed
-        # bytes stream through VMEM, never materializing decoded planes in
-        # HBM (ops/pallas_kernels.py).
-        from gmrm_tpu.ops.pallas_kernels import (
-            block_gram_scaled_pallas, block_eps_update_pallas,
-        )
-        def gram_scaled_fn(bed_blk, eps, mave_blk, msig_blk, dtype):
-            return block_gram_scaled_pallas(
-                bed_blk, eps, na, mave_blk, msig_blk, dtype=dtype,
-                shared_na=shared_na, axis_name=axis_name)
-        # The fused update kernel measures SLOWER than the XLA one (its
-        # skinny dots re-pay the in-kernel decode; benchmarking/PROFILE.md),
-        # so XLA update is the default even on the Pallas path.
-        if pallas_upd:
-            def upd_fn(*a, **k):
-                return block_eps_update_pallas(*a, axis_name=axis_name, **k)
-        else:
-            upd_fn = block_eps_update
+    wave = wave_size > 1
+    if wave:
+        scan_fn = functools.partial(block_scan_wave, wave=wave_size)
     else:
-        def gram_scaled_fn(bed_blk, eps, mave_blk, msig_blk, dtype):
-            craw, graw = block_gram(bed_blk, eps, na, mave_blk, dtype=dtype,
-                                    shared_na=shared_na)
-            c = msig_blk * craw
-            gs = msig_blk[:, :, None] * msig_blk[:, None, :] * graw
-            return c, gs
-        upd_fn = block_eps_update
+        scan_fn = block_scan
 
-    # ``blocks`` is a permutation of [0, m_pad): physically permute every
-    # marker-indexed operand ONCE, stream contiguous slices through the scan
-    # as xs, and invert the permutation once at the end.  This replaces the
-    # per-block gathers/scatters (4 takes + 3 scatter-updates x nblocks) that
-    # otherwise dominate the sweep on TPU.
+    # Permute every marker-indexed operand ONCE, stream contiguous slices
+    # through the scan as xs, and invert the permutation once at the end
+    # (instead of per-block gathers and scatters).
     perm = blocks.reshape(-1)
 
     def permuted_blocks(x, axis):
@@ -175,198 +120,56 @@ def marker_sweep(
         xp = xp.reshape(x.shape[0], nblocks, B)
         return jnp.moveaxis(xp, 1, 0)
 
-    # --- whole-sweep mega-kernel path (single device, f32, wave mode) ----
-    # One pallas_call for the entire sweep: no per-block launches, the
-    # residual and Gram stay in VMEM (ops/sweep_kernel.py).  Requires the
-    # block-preserving permutation from gibbs_iteration (``block_perm``):
-    # the bed never moves in HBM — block order rides the scalar-prefetched
-    # DMA index map, row order an in-kernel MXU permute.
-    mega = (use_pallas and pallas_gram and axis_name is None
-            and dtype == jnp.float32 and wave_size > 1
-            and B % wave_size == 0 and megakernel is not False
-            and block_perm is not None
-            and static.gram_cache is not None)
-    if megakernel and not mega:
-        # An explicit megakernel request with missing prerequisites must
-        # fail loudly, not silently run the composed path (a silent
-        # fallback made the mega A/B tests vacuous once).
-        raise ValueError(
-            "megakernel=True requires use_pallas+pallas_gram, f32, "
-            "wave_size>1 dividing block_size, no axis_name, a "
-            "block-preserving shuffle and static.gram_cache "
-            f"(got use_pallas={use_pallas}, pallas_gram={pallas_gram}, "
-            f"axis_name={axis_name}, dtype={dtype}, wave={wave_size}, "
-            f"B={B}, block_perm={'set' if block_perm is not None else None}, "
-            f"gram_cache={'set' if static.gram_cache is not None else None})")
-    tiled = False
-    if mega:
-        from gmrm_tpu.ops.sweep_kernel import (
-            sweep_blocks_pallas, build_sweep_tables, vmem_fits,
-            vmem_fits_tiled,
-        )
-        if megakernel == "tiled":
-            tiled = True               # test hook: force the tiled grid
-        else:
-            nt = 1 if shared_na else T
-            resident = vmem_fits(T, B, static.bed.shape[1], nt=nt)
-            tiled = ((not resident)
-                     and vmem_fits_tiled(T, B, static.bed.shape[1],
-                                         nt=nt))
-            mega = bool(megakernel) or resident or tiled
+    if wave:
+        bidx_all = blocks[:, 0] // B                       # natural block
+        win_all = blocks - bidx_all[:, None] * B           # row order
+        lead = (bidx_all, win_all)
+    else:
+        lead = (permuted_blocks(static.bed, 0),)           # (nb, B, mb)
+    xs = lead + (
+        permuted_blocks(static.mave, 1),                   # (nblocks, T, B)
+        permuted_blocks(static.msig, 1),
+        permuted_blocks(static.group_of, 0),               # (nblocks, B)
+        (perm < static.m_local).reshape(nblocks, B),
+        permuted_blocks(betas, 1),
+        permuted_blocks(comp, 1),
+        permuted_blocks(acum, 1),
+        u_all, z_all,
+    )
+    use_cache = wave and static.gram_cache is not None
 
-    if mega:
-        # The kernel consumes NATURAL-order operands and group-level scan
-        # tables and emits natural-order state — no XLA-side permutes,
-        # per-marker prep streams, or unpermute (they cost ~1 ms/iter of
-        # the 3.86 ms round-3 anchor).  All processing-order prep happens
-        # in-kernel via exact one-hot MXU permutes (_block_scan_phase).
-        G, K = static.cva.shape
-        lc_t, rd_t, sqb_t = build_sweep_tables(
-            sigmag, sigmae, pi_est, static.cva, static.cvai,
-            nonas, n_total)
-        i2se = (1.0 / (2.0 * sigmae.astype(jnp.float32)))[:, None]
-        nonas_col = nonas.astype(jnp.float32)[:, None]
-        eps_out, betas_new, comp_new, acum_new = sweep_blocks_pallas(
-            static.bed, block_perm[0], block_perm[1], static.m_local,
-            static.gram_cache, eps, na,
-            static.mave, static.msig, betas, comp, acum, static.group_of,
-            u_all, z_all, sigmag, lc_t, rd_t, sqb_t, i2se, nonas_col,
-            wave=wave_size, shared_na=shared_na, tiled=tiled)
-        eps = eps_out.astype(dtype)
-        cass_local = _natural_cass(comp_new, static.group_of, sigmag,
-                                   static.m_local, m_pad, G, K)
-        return (eps, betas_new.astype(dtype), comp_new,
-                acum_new.astype(dtype), cass_local)
-
-    # With a block-preserving permutation the bed is never copied: the
-    # composed body dynamic-slices natural blocks.  Only the
-    # uniform-shuffle paths (XLA / W=1) still permute physically.
-    stream_bed = block_perm is not None
-    bed_p = (None if stream_bed
-             else permuted_blocks(static.bed, 0))         # (nb, B, mb)
-    mave_p = permuted_blocks(static.mave, 1)          # (nblocks, T, B)
-    msig_p = permuted_blocks(static.msig, 1)
-    grp_p = permuted_blocks(static.group_of, 0)       # (nblocks, B)
-    valid_p = (perm < static.m_local).reshape(nblocks, B)
-    beta_old_p = permuted_blocks(betas, 1)
-    comp_old_p = permuted_blocks(comp, 1)
-    acum_old_p = permuted_blocks(acum, 1)
-
-    mb_pad = static.bed.shape[1]
-
-    # Cached-Gram composed mode: needs the block-preserving shuffle (so
-    # natural-block membership is iteration-invariant) and the f32 Pallas
-    # path whose accumulation structure the cache builder reproduces.
-    use_cache = (stream_bed and static.gram_cache is not None
-                 and use_pallas and pallas_gram and dtype == jnp.float32
-                 and gram_cached is not False)
-    if gram_cached is True and not use_cache:
-        raise ValueError(
-            "gram_cached=True requires the block-preserving shuffle, "
-            "use_pallas+pallas_gram, f32 and static.gram_cache")
-
-    def cached_gram_scaled(bidx, win_blk, bed_blk, eps, mave_blk, msig_blk):
-        from gmrm_tpu.ops.pallas_kernels import block_cdot_pallas
-        c = block_cdot_pallas(bed_blk, eps, mave_blk, msig_blk,
-                              axis_name=axis_name)
-        nt = static.gram_cache.shape[1]
-        gf = jax.lax.dynamic_slice(
-            static.gram_cache, (bidx, 0, 0, 0),
-            (1, nt, 2 * B, 2 * B))[0]                      # (NT, 2B, 2B)
-        # Natural -> processing order: one exact row+col gather (the
-        # in-kernel mega path needs the base-256 MXU trick for this;
-        # XLA take is exact).
+    def cached_gram_scaled(bidx, win_blk, mave_blk, msig_blk):
+        gf = static.gram_cache[bidx].astype(dtype)         # (NT, 2B, 2B)
+        # Natural -> processing order: one exact row + column gather.
         win2 = jnp.concatenate([win_blk, win_blk + B])
         gf = jnp.take(jnp.take(gf, win2, axis=1), win2, axis=2)
-        g1 = gf[:, :B, :B]
-        g2 = gf[:, B:, :B]
-        g2t = gf[:, :B, B:]
-        g3 = gf[:, B:, B:]
-        # Identical scaling expression to the fused Gram kernel
-        # (ops/pallas_kernels.py _gram_kernel) so results stay
-        # bit-comparable; NT=1 (shared na) broadcasts over traits.
-        mr = mave_blk[:, None, :]                          # (T, 1, B)
-        mc = mave_blk[:, :, None]                          # (T, B, 1)
-        sr = msig_blk[:, None, :]
-        sc = msig_blk[:, :, None]
-        graw = g1 - mr * g2t - mc * g2 + (mc * mr) * g3
-        return c, (sc * sr) * graw
-
-    use_fused = (use_cache and fused is not False
-                 and (fused is True or axis_name is not None))
-    if use_fused and fused is not True:
-        from gmrm_tpu.ops.sweep_kernel import vmem_fits
-        use_fused = vmem_fits(T, B, mb_pad, nt=1 if shared_na else T)
-    if fused is True and not use_fused:
-        raise ValueError(
-            "fused=True requires the cached-Gram prerequisites "
-            "(block-preserving shuffle, use_pallas, f32, "
-            "static.gram_cache)")
-
-    if use_fused:
-        from gmrm_tpu.ops.sweep_kernel import (
-            block_sweep_pallas, build_sweep_tables,
-        )
-        G, K = static.cva.shape
-        lc_t, rd_t, sqb_t = build_sweep_tables(
-            sigmag, sigmae, pi_est, static.cva, static.cvai,
-            nonas, n_total)
-        i2se = (1.0 / (2.0 * sigmae.astype(jnp.float32)))[:, None]
-        nonas_col = nonas.astype(jnp.float32)[:, None]
-        ntc = static.gram_cache.shape[1]
-
-        def fused_body(carry, xs):
-            eps, betas_c, comp_c, acum_c = carry
-            bidx, win_blk, u_blk, z_blk = xs
-            bed_blk = jax.lax.dynamic_slice(
-                static.bed, (bidx * B, 0), (B, mb_pad))
-            gf = jax.lax.dynamic_slice(
-                static.gram_cache, (bidx, 0, 0, 0), (1, ntc, 2 * B, 2 * B))
-
-            def sl(x):
-                return jax.lax.dynamic_slice(x, (0, bidx * B), (T, B))
-
-            deps, bet_b, comp_b, acum_b = block_sweep_pallas(
-                bidx, static.m_local, bed_blk, win_blk, gf, eps, na,
-                sl(static.mave), sl(static.msig),
-                sl(betas_c), sl(comp_c), sl(acum_c),
-                jax.lax.dynamic_slice(static.group_of, (bidx * B,), (B,)),
-                u_blk, z_blk, sigmag, lc_t, rd_t, sqb_t, i2se, nonas_col,
-                wave=wave_size, shared_na=shared_na, axis_name=axis_name)
-            deps = _psum(deps, sync_axis)
-            eps = eps + deps.astype(dtype)
-            betas_c = jax.lax.dynamic_update_slice(
-                betas_c, bet_b.astype(betas_c.dtype), (0, bidx * B))
-            comp_c = jax.lax.dynamic_update_slice(
-                comp_c, comp_b, (0, bidx * B))
-            acum_c = jax.lax.dynamic_update_slice(
-                acum_c, acum_b.astype(acum_c.dtype), (0, bidx * B))
-            return (eps, betas_c, comp_c, acum_c), None
-
-        (eps, betas, comp, acum), _ = jax.lax.scan(
-            fused_body, (eps, betas, comp, acum),
-            (block_perm[0], block_perm[1], u_all, z_all))
-        cass_local = _natural_cass(comp, static.group_of, sigmag,
-                                   static.m_local, m_pad, G, K)
-        return eps, betas, comp, acum, cass_local
+        graw = gram_from_quadrants(gf, mave_blk)           # NT=1 broadcasts
+        return (msig_blk[:, :, None] * msig_blk[:, None, :]) * graw
 
     def block_body(carry, xs):
         eps, cass = carry
-        if stream_bed:
-            (bidx, win_blk, mave_blk, msig_blk, grp_blk, valid_blk,
-             beta_old, comp_old, acum_old, u_blk, z_blk) = xs
-            blk = jax.lax.dynamic_slice(
-                static.bed, (bidx * B, 0), (B, mb_pad))
-            bed_blk = jnp.take(blk, win_blk, axis=0)
-        else:
-            (bed_blk, mave_blk, msig_blk, grp_blk, valid_blk,
-             beta_old, comp_old, acum_old, u_blk, z_blk) = xs
-
+        (mave_blk, msig_blk, grp_blk, valid_blk,
+         beta_old, comp_old, acum_old, u_blk, z_blk) = xs[len(lead):]
         if use_cache:
-            c, gs = cached_gram_scaled(bidx, win_blk, bed_blk, eps,
-                                       mave_blk, msig_blk)
+            bidx, win_blk = xs[:2]
+            rows = bidx * B + win_blk                      # bed rows
+            c = msig_blk * block_cdot_rows(static.bed, rows, eps, mave_blk,
+                                           axis_name=axis_name)
+            gs = cached_gram_scaled(bidx, win_blk, mave_blk, msig_blk)
+
+            def update(d):
+                return block_eps_update_rows(static.bed, rows, d, na,
+                                             mave_blk, axis_name=axis_name)
         else:
-            c, gs = gram_scaled_fn(bed_blk, eps, mave_blk, msig_blk, dtype)
+            bed_blk = (jnp.take(static.bed, xs[0] * B + xs[1], axis=0)
+                       if wave else xs[0])
+            craw, graw = block_gram(bed_blk, eps, na, mave_blk, dtype=dtype,
+                                    shared_na=shared_na)
+            c = msig_blk * craw
+            gs = msig_blk[:, :, None] * msig_blk[:, None, :] * graw
+
+            def update(d):
+                return block_eps_update(bed_blk, d, na, mave_blk, dtype=dtype)
 
         res = scan_fn(
             c, gs, beta_old, comp_old, acum_old, grp_blk, valid_blk,
@@ -375,23 +178,13 @@ def marker_sweep(
             axis_name=axis_name,
         )
 
-        deps = upd_fn(bed_blk, msig_blk * res.dbeta_eff, na, mave_blk,
-                      dtype=dtype)
-        deps = _psum(deps, sync_axis)
-        eps = eps + deps
-
+        eps = eps + _psum(update(msig_blk * res.dbeta_eff), sync_axis)
         cass = cass + res.cass_inc
         return (eps, cass), (res.beta_new, res.comp_new, res.acum_new)
 
     cass0 = jnp.zeros((T,) + static.cva.shape, jnp.int32)
     if axis_name is not None:
         cass0 = jax.lax.pcast(cass0, (axis_name,), to='varying')
-    if stream_bed:
-        xs = (block_perm[0], block_perm[1], mave_p, msig_p, grp_p, valid_p,
-              beta_old_p, comp_old_p, acum_old_p, u_all, z_all)
-    else:
-        xs = (bed_p, mave_p, msig_p, grp_p, valid_p,
-              beta_old_p, comp_old_p, acum_old_p, u_all, z_all)
     (eps, cass_local), (beta_new_p, comp_new_p, acum_new_p) = jax.lax.scan(
         block_body, (eps, cass0), xs,
     )
@@ -424,15 +217,9 @@ def gibbs_iteration(
     *,
     block_size: int,
     axis_name: Optional[str] = None,
-    use_pallas: bool = False,
     shuffle: bool = True,
     shared_na: bool = False,
     wave_size: int = 1,
-    pallas_gram: bool = True,
-    pallas_upd: bool = False,
-    megakernel=None,
-    gram_cached=None,
-    fused=None,
     elide_collectives: bool = False,
 ):
     T, _, mb = state.eps.shape
@@ -464,32 +251,19 @@ def gibbs_iteration(
     eps = eps - mu_new[:, None, None] * na
 
     # --- 2. shuffled processing order ------------------------------------
-    # Two schemes:
-    # (a) uniform shuffle of the real markers with pad slots pinned to the
-    #     end (supports per-device remainder markers under a common
-    #     nblocks, the reference's Mm idle-step scheme, bayes.cpp:375-382)
-    #     + one physical permute of every marker-indexed operand;
-    # (b) block-preserving shuffle for the mega-kernel path: random block
-    #     order x random within-block row order, consumed by the kernel as
-    #     a scalar-prefetched DMA index + in-kernel MXU row permute — the
-    #     bed never moves in HBM.  The reference itself shuffles only
-    #     within each rank's FIXED marker block (phenotype.cpp:314-323,
+    # Two schemes, one per sweep path (marker_sweep):
+    # (a) W = 1: uniform shuffle of the real markers with pad slots pinned
+    #     to the end (supports per-device remainder markers under a common
+    #     nblocks, the reference's Mm idle-step scheme, bayes.cpp:375-382);
+    # (b) W > 1: block-preserving shuffle — random block order x random
+    #     within-block row order — so natural-block membership never
+    #     changes and the Gram cache holds.  The reference itself shuffles
+    #     only within each rank's FIXED marker block (phenotype.cpp:314-323,
     #     per-rank midx), so (b) is at least as random as the reference's
     #     own multi-rank semantics; the wave relaxation's within-wave
-    #     pairings re-randomize every iteration under both schemes.
-    # NOTE: deliberately independent of megakernel on/off so that a
-    # force-disabled composed run shuffles identically to the mega run it
-    # is A/B'd against (bench_mega.py / test_sweep_kernel.py).  The
-    # composed fallback consumes the same scheme by dynamic-slicing
-    # natural blocks (no whole-bed copy — at UKB scale the former
-    # physical permute doubled HBM and OOM'd).  Under shard_map
-    # (axis_name set) each device draws its own block order + row
-    # shuffle (k_perm is device-folded above), enabling the per-shard
-    # Gram cache on the sharded sweep too.
-    block_mode = (use_pallas and pallas_gram
-                  and dtype == jnp.float32 and wave_size > 1
-                  and B % wave_size == 0)
-    pi_b = win = None
+    #     pairings re-randomize every iteration.  Under shard_map each
+    #     device draws its own order (k_perm is device-folded above).
+    block_mode = wave_size > 1
     if shuffle and not block_mode:
         r = jr.uniform(k_perm, (m_pad,))
         r = jnp.where(jnp.arange(m_pad) < static.m_local, r, 2.0)
@@ -503,13 +277,8 @@ def gibbs_iteration(
     else:
         # --shuffle-markers 0: natural order (options.cpp:64-68; pad slots
         # already sit at the end of the local range).
-        perm = jnp.arange(m_pad)
-        if block_mode:
-            pi_b = jnp.arange(nblocks, dtype=jnp.int32)
-            win = jnp.broadcast_to(jnp.arange(B, dtype=jnp.int32),
-                                   (nblocks, B))
+        perm = jnp.arange(m_pad, dtype=jnp.int32)
     blocks = perm.reshape(nblocks, B)
-    block_perm = (pi_b, win) if block_mode else None
 
     u_all = jr.uniform(k_u, (nblocks, T, B), dtype)
     z_all = jr.normal(k_z, (nblocks, T, B), dtype)
@@ -519,10 +288,7 @@ def gibbs_iteration(
         eps, state.betas, state.comp, state.acum,
         state.sigmag, sigmae, state.pi_est,
         static, blocks, u_all, z_all,
-        axis_name=axis_name, use_pallas=use_pallas, shared_na=shared_na,
-        wave_size=wave_size, pallas_gram=pallas_gram, pallas_upd=pallas_upd,
-        megakernel=megakernel, block_perm=block_perm,
-        gram_cached=gram_cached, fused=fused,
+        axis_name=axis_name, shared_na=shared_na, wave_size=wave_size,
         elide_collectives=elide_collectives,
     )
 
@@ -569,11 +335,8 @@ def gibbs_iteration(
 
 
 def make_gibbs_step(*, block_size: int, axis_name: Optional[str] = None,
-                    use_pallas: bool = False, donate: bool = True,
-                    shuffle: bool = True, shared_na: bool = False,
-                    wave_size: int = 1, pallas_gram: bool = True,
-                    pallas_upd: bool = False, megakernel=None,
-                    gram_cached=None, fused=None):
+                    donate: bool = True, shuffle: bool = True,
+                    shared_na: bool = False, wave_size: int = 1):
     """Jitted single-iteration step (state, static, it) -> (state, aux).
 
     ``static`` is a regular argument (not a closure constant) so the bed
@@ -581,8 +344,6 @@ def make_gibbs_step(*, block_size: int, axis_name: Optional[str] = None,
     """
     fn = functools.partial(
         gibbs_iteration, block_size=block_size, axis_name=axis_name,
-        use_pallas=use_pallas, shuffle=shuffle, shared_na=shared_na,
-        wave_size=wave_size, pallas_gram=pallas_gram, pallas_upd=pallas_upd,
-        megakernel=megakernel, gram_cached=gram_cached, fused=fused,
+        shuffle=shuffle, shared_na=shared_na, wave_size=wave_size,
     )
     return jax.jit(fn, donate_argnums=(0,) if donate else ())

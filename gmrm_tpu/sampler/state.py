@@ -9,16 +9,25 @@ axis, SURVEY §2).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.struct
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from gmrm_tpu.io.bed import MISSING_BYTE
 
 
-@flax.struct.dataclass
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree (every field a data
+    leaf), with ``replace`` returning a copy with some fields changed."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    return jax.tree_util.register_dataclass(cls)
+
+
+@_pytree_dataclass
 class SamplerState:
     """Per-device sampler state.  Marker-axis leaves are local shards."""
     eps: jnp.ndarray        # (T, 4, mb) residual phase planes (replicated)
@@ -34,7 +43,7 @@ class SamplerState:
     key: jnp.ndarray        # base PRNG key (replicated)
 
 
-@flax.struct.dataclass
+@_pytree_dataclass
 class StaticInputs:
     """Per-device non-evolving inputs."""
     bed: jnp.ndarray        # (M_pad, mb) uint8, pad rows = 0x55 (all missing)
@@ -49,10 +58,11 @@ class StaticInputs:
     n_total: jnp.ndarray    # () float: the dims N
     m_local: jnp.ndarray    # () int32: real (unpadded) local marker count
     # Optional precomputed per-natural-block raw Gram quadrants
-    # (nblocks, NT, 2B, 2B) f32 for the mega-kernel path: X does not
-    # change across iterations and block membership is fixed under the
+    # (nblocks, NT, 2B, 2B) f32 for the wave sweep: X does not change
+    # across iterations and block membership is fixed under the
     # block-preserving shuffle, so the O(M N B) Gram recompute becomes an
-    # O(M B) cache load + in-kernel permute (ops/sweep_kernel.py).
+    # O(M B) cache load + row/column permute (ops/blockops.py
+    # build_gram_cache).
     gram_cache: Optional[jnp.ndarray] = None
 
 

@@ -24,12 +24,13 @@ def main():
 
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
     import jax
     jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    from gmrm_tpu import compile_cache
+    compile_cache.enable()
     from gmrm_tpu.parallel.distributed import init_distributed
     init_distributed(coordinator_address=f"localhost:{port}",
                      num_processes=nprocs, process_id=pid)
@@ -72,10 +73,9 @@ def main():
             iterations=iters, seed=42, out_dir=out_dir, block_size=16,
             output_thin_rate=2, checkpoint_every=ckpt_every, resume=resume,
             cache_dir=cache_dir,
-            # The production pod configuration: wave mode + Pallas
-            # (interpret on CPU) engages the per-shard Gram cache and the
-            # fused per-block kernel across the REAL process boundary.
-            use_pallas=True, wave_size=4,
+            # The production configuration: wave mode engages the
+            # per-shard Gram cache across the REAL process boundary.
+            wave_size=4,
         )
         run_training_sharded(opt, verbose=False)
     print(f"worker {pid}: done", flush=True)

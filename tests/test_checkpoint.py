@@ -58,7 +58,7 @@ def test_resume_without_checkpoint_starts_fresh(sim_small, tmp_path):
 
 def test_sharded_resume_truncates_stale_rows(sim_small, tmp_path):
     """Resuming a SHARDED run from a checkpoint OLDER than the output
-    files must truncate rows past the checkpoint (VERDICT r3 weak 6):
+    files must truncate rows past the checkpoint:
     final artifacts match an uninterrupted run byte-for-byte."""
     import jax
     import pytest
@@ -90,7 +90,7 @@ def test_resume_bit_identical_wave_mode(sim_small, tmp_path):
     (runner.interleave_order) must reproduce identically across the
     checkpoint boundary — artifacts byte-identical to an uninterrupted
     run."""
-    kw = dict(use_pallas=True, wave_size=4, block_size=16)
+    kw = dict(wave_size=4, block_size=16)
     full_dir = str(tmp_path / "wfull")
     run_training(_opts(sim_small, full_dir, 12, **kw), verbose=False)
 
@@ -109,8 +109,7 @@ def test_resume_bit_identical_wave_mode(sim_small, tmp_path):
 
 
 def test_single_device_resume_truncates_stale_rows(sim_small, tmp_path):
-    """The SINGLE-device analog of the sharded stale-row test (ADVICE r4
-    medium 1): checkpoint at it=8, crash after it=14, resume to it=10 —
+    """The SINGLE-device analog of the sharded stale-row test: checkpoint at it=8, crash after it=14, resume to it=10 —
     rows past the checkpoint must not survive; artifacts byte-identical
     to an uninterrupted 10-iteration run."""
     full_dir = str(tmp_path / "ofull")
@@ -133,12 +132,12 @@ def test_resume_layout_mismatch_fails_loudly(sim_small, tmp_path):
     """Checkpoints stamp the marker-STORAGE layout (block_size /
     wave_size / interleave); resuming under a different layout must fail
     loudly instead of silently misaligning state against the
-    re-interleaved bed (ADVICE r4 medium 2)."""
+    re-interleaved bed."""
     import pytest
 
     out = str(tmp_path / "lay")
     run_training(_opts(sim_small, out, 6, checkpoint_every=3,
-                       use_pallas=True, wave_size=4, block_size=16),
+                       wave_size=4, block_size=16),
                  verbose=False)
     with pytest.raises(ValueError, match="storage layout"):
         run_training(_opts(sim_small, out, 12, checkpoint_every=3,
@@ -146,7 +145,7 @@ def test_resume_layout_mismatch_fails_loudly(sim_small, tmp_path):
                      verbose=False)
     with pytest.raises(ValueError, match="storage layout"):
         run_training(_opts(sim_small, out, 12, checkpoint_every=3,
-                           resume=True, use_pallas=True, wave_size=4,
+                           resume=True, wave_size=4,
                            block_size=32),
                      verbose=False)
 
@@ -168,7 +167,7 @@ def test_legacy_checkpoint_without_layout_stamp(sim_small, tmp_path):
     np.savez(ck, **arrays)                       # strip the stamp
 
     for kw in (dict(wave_size=1),
-               dict(use_pallas=True, wave_size=4, block_size=16)):
+               dict(wave_size=4, block_size=16)):
         with pytest.raises(ValueError, match="predates layout stamping"):
             run_training(_opts(sim_small, out, 8, checkpoint_every=3,
                                resume=True, **kw), verbose=False)
@@ -212,7 +211,7 @@ def test_single_device_refuses_sharded_checkpoint(sim_small, tmp_path):
 
 def test_truncate_csv_variable_width(tmp_path):
     """truncate_csv_to must survive rows of DIFFERENT widths (iteration
-    crossing %5d, m0_sum crossing %7d — ADVICE r4 low 5)."""
+    crossing %5d, m0_sum crossing %7d)."""
     from gmrm_tpu.io.writers import truncate_csv_to
 
     p = str(tmp_path / "x.csv")
@@ -230,11 +229,11 @@ def test_truncate_csv_variable_width(tmp_path):
 
 def test_startup_cache_reuse(sim_small, tmp_path):
     """--cache-dir persists marker stats + Gram cache across runs of
-    the same dataset (VERDICT r4 item 5): the second run warm-loads
+    the same dataset: the second run warm-loads
     the npz and produces byte-identical artifacts; a changed geometry
     (block size) keys a different entry."""
     cache = str(tmp_path / "cache")
-    kw = dict(use_pallas=True, wave_size=4, block_size=16,
+    kw = dict(wave_size=4, block_size=16,
               cache_dir=cache)
 
     cold_dir = str(tmp_path / "cold")
@@ -270,7 +269,7 @@ def test_sharded_startup_cache_reuse(sim_small, tmp_path):
     from gmrm_tpu.parallel.runner import run_training_sharded
 
     cache = str(tmp_path / "scache")
-    kw = dict(use_pallas=True, wave_size=4, block_size=16,
+    kw = dict(wave_size=4, block_size=16,
               cache_dir=cache)
 
     cold_dir = str(tmp_path / "scold")
@@ -367,11 +366,11 @@ def test_resume_trunc_markers_mismatch_fails(sim_small, tmp_path):
 
     out = str(tmp_path / "trunc")
     run_training(_opts(sim_small, out, 6, checkpoint_every=3,
-                       use_pallas=True, wave_size=4, block_size=16),
+                       wave_size=4, block_size=16),
                  verbose=False)
     with pytest.raises(ValueError, match="storage layout"):
         run_training(_opts(sim_small, out, 10, checkpoint_every=3,
-                           resume=True, use_pallas=True, wave_size=4,
+                           resume=True, wave_size=4,
                            block_size=16,
                            trunc_markers=sim_small.m - 16),
                      verbose=False)

@@ -58,8 +58,7 @@ def test_cli_train_then_predict(sim_small, tmp_path):
     assert causal[top].mean() > 0.5
 
     # Sharded predict (8-device mesh) must be byte-identical to the
-    # single-device pass (VERDICT r1 item 8; per-marker sums never cross
-    # shards).
+    # single-device pass.
     mlma_8dev = open(mlma, "rb").read()
     rc = main([
         "--predict",

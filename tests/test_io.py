@@ -155,7 +155,7 @@ def test_sim_outputs(sim_small):
 
 def test_phen_malformed_agrees_native_and_numpy(tmp_path):
     """Malformed .phen lines must fail identically (IOError) whether the
-    native parser or the numpy fallback handles them (VERDICT r3 weak 5)."""
+    native parser or the numpy fallback handles them."""
     import pytest
     from gmrm_tpu.io.phen import read_phen
     from gmrm_tpu.io import native as nat
@@ -223,7 +223,7 @@ def test_interleave_roundtrip(sim_small):
 
 def test_chunked_ld_simulator_matches_inmemory(tmp_path, monkeypatch):
     """The chunked (large-M) generator now streams the AR(1)-copula LD
-    chain (VERDICT r4 item 7): with the in-memory limit shrunk, the
+    chain: with the in-memory limit shrunk, the
     chunked path must write the IDENTICAL .bed as the in-memory path
     (the latent chain is Markov, so chunking cannot change the draws)."""
     import gmrm_tpu.io.sim as sim_mod

@@ -1,6 +1,6 @@
 """Multi-process (multi-host-simulation) execution tests.
 
-The TPU-world analog of the reference's multi-rank MPI runs
+The device-mesh analog of the reference's multi-rank MPI runs
 (bayes.cpp:867-900 per-rank loads + Allgatherv protocol): two OS processes
 x 4 virtual CPU devices each form one 8-device global mesh via
 jax.distributed + gloo.  The sampler's randomness depends only on the
@@ -53,10 +53,11 @@ def _run_single(data_dir, out_dir, iterations=10, checkpoint_every=0,
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {REPO!r})
+from gmrm_tpu import compile_cache
+compile_cache.enable()
 from gmrm_tpu.config import Options
 from gmrm_tpu.parallel.runner import run_training_sharded
 phens = sorted(os.path.join({data_dir!r}, f) for f in os.listdir({data_dir!r})
@@ -68,7 +69,7 @@ opt = Options(bed_file={data_dir!r} + "/test.bed",
               iterations={iterations}, seed=42, out_dir={out_dir!r},
               block_size=16, output_thin_rate=2,
               checkpoint_every={checkpoint_every}, resume={resume},
-              use_pallas=True, wave_size=4)
+              wave_size=4)
 run_training_sharded(opt, verbose=False)
 """
     subprocess.run([sys.executable, "-c", code], check=True, timeout=900)
@@ -79,10 +80,11 @@ def _run_predict_single(data_dir, out_dir):
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/gmrm_jax_cache")
 import jax
 jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, {REPO!r})
+from gmrm_tpu import compile_cache
+compile_cache.enable()
 from gmrm_tpu.config import Options
 from gmrm_tpu.predict import run_predict
 phens = sorted(os.path.join({data_dir!r}, f) for f in os.listdir({data_dir!r})
@@ -176,7 +178,7 @@ def test_two_process_run_matches_single_process(mp_dataset, tmp_path):
 
 
 def test_cross_topology_resume(mp_dataset, tmp_path):
-    """Topology-portable sharded resume (VERDICT r4 weak 5): checkpoint
+    """Topology-portable sharded resume: checkpoint
     under 1 process x 8 devices, RESUME under 2 processes x 4 devices
     (same 8-device global mesh -> identical draws; only collective float
     noise differs), and the completed chain must match an uninterrupted
@@ -273,7 +275,7 @@ def test_two_process_startup_cache(mp_dataset, tmp_path):
                     reason="slow UKB-shaped rehearsal; set GMRM_SLOW=1")
 def test_ukb_rehearsal_8proc():
     """tests/-runnable entry for the 8-process UKB-shaped rehearsal
-    (VERDICT r4 item 3): full pipeline (sharded load -> checkpoint ->
+: full pipeline (sharded load -> checkpoint ->
     crash -> resume -> sharded predict) at a reduced shape.  The full
     50k x 64k run is recorded in benchmarking/SCALE.md."""
     proc = subprocess.run(

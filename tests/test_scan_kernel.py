@@ -1,28 +1,32 @@
-"""The Pallas within-block scan kernel vs the XLA block_scan reference.
+"""The plain-JAX wave scan (sampler.scan.block_scan_wave) vs its references.
 
-Runs the kernel in interpret mode so the TPU code path is exercised by the
-CPU test suite.  Component choices must match exactly; continuous outputs
-to float32 tolerance (the kernel uses reciprocal-multiply where block_scan
-divides).
+W=1 must reproduce the exact serial ``block_scan``; every W must match the
+float64 NumPy wave reference ``oracle.wave_scan``.  Component choices must
+match exactly; continuous outputs to float32 tolerance (the wave scan
+uses the exponent-sum CDF form where the references walk pairwise terms).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gmrm_tpu.ops import scan_kernel
-from gmrm_tpu.ops.scan_kernel_wave import make_block_scan_wave
-from gmrm_tpu.sampler.scan import block_scan
+from gmrm_tpu import oracle
+from gmrm_tpu.sampler.scan import block_scan, block_scan_wave
 
-KERNELS = {
-    "v1": scan_kernel.block_scan_pallas,
-    "wave1": make_block_scan_wave(1),
-}
+WAVES = [1, 4, 8, 32]
+CASES = ["plain", "adav", "overflow"]
 
 
-def _random_case(rng, T, B, G, K, *, adav_group=None, overflow=False):
+def _random_case(rng, T, B, G, K, *, adav_group=None, overflow=False,
+                 strong_gram=False):
     c = rng.normal(size=(T, B)) * (200.0 if overflow else 5.0)
-    gs = rng.normal(size=(T, B, B)) * 0.02
+    if strong_gram:
+        # Corrections material enough that within-wave blindness flips
+        # draws (a wiring bug would show as component mismatches).
+        gs = rng.normal(size=(T, B, B)) * 2.0
+        gs = (gs + np.swapaxes(gs, 1, 2)) / 2
+    else:
+        gs = rng.normal(size=(T, B, B)) * 0.02
     beta_old = rng.normal(size=(T, B)) * 0.01
     comp_old = rng.integers(0, K, size=(T, B))
     acum_old = rng.uniform(size=(T, B))
@@ -42,7 +46,7 @@ def _random_case(rng, T, B, G, K, *, adav_group=None, overflow=False):
     nonas = np.full(T, 9900.0)
     n_total = 10000.0
     f32 = jnp.float32
-    args = (
+    return (
         jnp.asarray(c, f32), jnp.asarray(gs, f32),
         jnp.asarray(beta_old, f32), jnp.asarray(comp_old, jnp.int32),
         jnp.asarray(acum_old, f32), jnp.asarray(grp, jnp.int32),
@@ -51,26 +55,24 @@ def _random_case(rng, T, B, G, K, *, adav_group=None, overflow=False):
         jnp.asarray(pi, f32), jnp.asarray(cva, f32), jnp.asarray(cvai, f32),
         jnp.asarray(nonas, f32), jnp.asarray(n_total, f32),
     )
-    return args
 
 
-@pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("case", ["plain", "adav", "overflow"])
-def test_pallas_scan_matches_block_scan(case, kernel):
-    rng = np.random.default_rng({"plain": 0, "adav": 1, "overflow": 2}[case])
-    T, B, G, K = 3, 32, 2, 4
-    args = _random_case(
-        rng, T, B, G, K,
-        adav_group=0 if case == "adav" else None,
-        overflow=case == "overflow",
-    )
+def _case(name, T=3, B=64, G=2, K=4, seed=0, strong_gram=True):
+    rng = np.random.default_rng(seed + CASES.index(name))
+    return _random_case(rng, T, B, G, K,
+                        adav_group=0 if name == "adav" else None,
+                        overflow=name == "overflow", strong_gram=strong_gram)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_wave1_scan_matches_block_scan(case):
+    """W=1 is the exact serial recursion: block_scan's outputs."""
+    args = _case(case, T=3, B=32, strong_gram=False)
     ref = block_scan(*args)
-    out = KERNELS[kernel](*args, interpret=True)
-
+    out = block_scan_wave(*args, wave=1)
     np.testing.assert_array_equal(
         np.asarray(out.comp_new), np.asarray(ref.comp_new),
-        err_msg=f"{case}: component choices diverged",
-    )
+        err_msg=f"{case}: component choices diverged")
     np.testing.assert_array_equal(np.asarray(out.cass_inc),
                                   np.asarray(ref.cass_inc))
     np.testing.assert_allclose(np.asarray(out.beta_new),
@@ -84,95 +86,45 @@ def test_pallas_scan_matches_block_scan(case, kernel):
                                rtol=1e-4, atol=1e-6)
 
 
-def _wave_reference_numpy(args, W):
-    """NumPy reference for wave mode: markers within a wave of W draw
-    against the wave-start state (blind to each other); the wave's
-    corrections fold before the next wave.  Built on block_scan applied
-    wave-by-wave with zeroed within-wave Gram."""
-    import jax.numpy as jnp
-    (c, gs, beta_old, comp_old, acum_old, grp, valid, u, z,
-     sigmag, sigmae, pi, cva, cvai, nonas, n_total) = args
-    T, B = c.shape
-    c = np.asarray(c, np.float64).copy()
-    gs_np = np.asarray(gs, np.float64)
-    outs = {k: [] for k in ("dbeta", "beta", "comp", "acum")}
-    cass = None
-    corr = np.zeros((T, B))
-    for w0 in range(0, B, W):
-        s = slice(w0, w0 + W)
-        # zero within-wave coupling: each wave marker sees only corr so far
-        gs_wave = np.zeros((T, W, W))
-        sub = block_scan(
-            jnp.asarray(c[:, s] + corr[:, s], jnp.float32),
-            jnp.asarray(gs_wave, jnp.float32),
-            beta_old[:, s], comp_old[:, s], acum_old[:, s],
-            grp[s], valid[s], u[:, s], z[:, s],
-            sigmag, sigmae, pi, cva, cvai, nonas, n_total,
-        )
-        db = np.asarray(sub.dbeta_eff, np.float64)
-        outs["dbeta"].append(db)
-        outs["beta"].append(np.asarray(sub.beta_new))
-        outs["comp"].append(np.asarray(sub.comp_new))
-        outs["acum"].append(np.asarray(sub.acum_new))
-        cass = sub.cass_inc if cass is None else cass + sub.cass_inc
-        # fold the wave's rank-W correction for all later markers
-        corr += np.einsum("tw,twb->tb", db, gs_np[:, s, :])
-    return (np.concatenate(outs["dbeta"], axis=1),
-            np.concatenate(outs["beta"], axis=1),
-            np.concatenate(outs["comp"], axis=1),
-            np.concatenate(outs["acum"], axis=1),
-            np.asarray(cass))
-
-
-@pytest.mark.parametrize("W", [4, 8])
-def test_wave_kernel_matches_wave_reference(W):
-    """Wave mode (W > 1) vs the NumPy wave-by-wave reference: discrete
-    choices exact, continuous to f32 tolerance.  Uses strong couplings so
-    within-wave blindness actually matters (a bug would flip components)."""
-    rng = np.random.default_rng(11)
-    T, B, G, K = 2, 32, 2, 4
-    args = list(_random_case(rng, T, B, G, K))
-    # strengthen the Gram so corrections are material
-    gs = rng.normal(size=(T, B, B)) * 2.0
-    gs = (gs + np.swapaxes(gs, 1, 2)) / 2
-    args[1] = __import__("jax.numpy", fromlist=["asarray"]).asarray(
-        gs, dtype=np.float32)
-    ref_db, ref_b, ref_c, ref_a, ref_cass = _wave_reference_numpy(args, W)
-    out = make_block_scan_wave(W)(*args, interpret=True)
+@pytest.mark.parametrize("W", WAVES)
+@pytest.mark.parametrize("case", CASES)
+def test_wave_scan_matches_wave_reference(case, W):
+    """Every wave width vs the float64 wave reference, with couplings
+    strong enough that within-wave blindness matters."""
+    args = _case(case, seed=11)
+    ref_db, ref_b, ref_c, ref_a, ref_cass = oracle.wave_scan(
+        *(np.asarray(a) for a in args), wave=W)
+    out = block_scan_wave(*args, wave=W)
     np.testing.assert_array_equal(np.asarray(out.comp_new), ref_c)
     np.testing.assert_array_equal(np.asarray(out.cass_inc), ref_cass)
     np.testing.assert_allclose(np.asarray(out.beta_new), ref_b,
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(np.asarray(out.dbeta_eff), ref_db,
                                rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(out.acum_new), ref_a,
+                               rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("kernel", sorted(KERNELS))
-def test_pallas_scan_serial_dependency(kernel):
-    """The Gram correction must propagate: a strong first marker changes
-    the draw of a correlated later marker (exactness of the recursion is
-    covered by the oracle tests; this guards the corr buffer wiring)."""
-    block_scan_pallas = KERNELS[kernel]
+@pytest.mark.parametrize("W", [1, 4])
+def test_wave_scan_serial_dependency(W):
+    """The Gram correction must propagate to later waves: a strong first
+    marker changes the draw of a correlated marker in a later wave."""
     rng = np.random.default_rng(7)
     T, B, G, K = 1, 8, 1, 4
     args = list(_random_case(rng, T, B, G, K))
-    # Make marker 0 strongly selected and correlated with marker 5.
+    # Marker 0 strongly selected and correlated with marker 5.
     c = np.zeros((T, B)); c[0, 0] = 400.0; c[0, 5] = 30.0
     gs = np.zeros((T, B, B)); gs[0, 0, 5] = gs[0, 5, 0] = 500.0
     args[0] = jnp.asarray(c, jnp.float32)
     args[1] = jnp.asarray(gs, jnp.float32)
     args[6] = jnp.ones(B, bool)
-    out = block_scan_pallas(*args, interpret=True)
-    ref = block_scan(*args)
-    np.testing.assert_array_equal(np.asarray(out.comp_new),
-                                  np.asarray(ref.comp_new))
-    np.testing.assert_allclose(np.asarray(out.beta_new),
-                               np.asarray(ref.beta_new), rtol=1e-5,
-                               atol=1e-6)
+    out = block_scan_wave(*args, wave=W)
+    ref = oracle.wave_scan(*(np.asarray(a) for a in args), wave=W)
+    np.testing.assert_array_equal(np.asarray(out.comp_new), ref[2])
+    np.testing.assert_allclose(np.asarray(out.beta_new), ref[1],
+                               rtol=1e-5, atol=1e-6)
     # And the later marker's beta is genuinely affected by the earlier one.
-    args2 = list(args)
-    gs0 = np.zeros((T, B, B))
-    args2[1] = jnp.asarray(gs0, jnp.float32)
-    out2 = block_scan_pallas(*args2, interpret=True)
+    args[1] = jnp.zeros((T, B, B), jnp.float32)
+    out2 = block_scan_wave(*args, wave=W)
     assert not np.allclose(np.asarray(out.beta_new)[0, 5],
                            np.asarray(out2.beta_new)[0, 5])

@@ -68,19 +68,16 @@ def test_sharded_run_matches_single_device_statistically(sim_medium, tmp_path):
 
 
 @needs_8
-@pytest.mark.parametrize("block_size,use_pallas", [(1, False), (4, False),
-                                                   (4, True)])
-def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
-                                             use_pallas):
+@pytest.mark.parametrize("block_size,wave", [(1, 1), (4, 1), (8, 4)])
+def test_sharded_sweep_matches_replay_oracle(sim_small, block_size, wave):
     """The sharded blocked sweep vs the NumPy D-rank replay oracle at exact
-    cadence with injected randomness (VERDICT r1 item 6): B=1 reproduces
+    cadence with injected randomness: B=1 reproduces
     the reference's per-marker Allgatherv protocol (bayes.cpp:500-553),
     B=4 the blocked throughput mode.  Discrete choices must match exactly.
 
-    use_pallas=True runs the same protocol through the fused Pallas
-    Gram/scan kernels under shard_map (interpret mode on CPU) — the
-    shard_map x pallas_call combination a real pod executes
-    (parallel/runner.py:426-434).
+    wave > 1 runs the production wave path under shard_map: a
+    block-preserving shuffle and the per-shard Gram cache, against the
+    oracle's wave replay.
     """
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -91,6 +88,7 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
     from gmrm_tpu.parallel.mesh import (
         MARKER_AXIS, make_marker_mesh, marker_blocks,
     )
+    from gmrm_tpu.ops.blockops import build_gram_cache
     from gmrm_tpu.parallel.runner import _static_specs
     from gmrm_tpu.sampler.gibbs import marker_sweep
     from gmrm_tpu.sampler.state import StaticInputs, pad_bed, pi_prior_from_cva
@@ -131,13 +129,18 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
         nonas=ph.nonas,
     )
 
-    perms = [rng.permutation(mps) for _ in range(D)]
+    if wave > 1:                     # block-preserving, as the sampler
+        perms = [(rng.permutation(nblocks)[:, None] * B
+                  + np.stack([rng.permutation(B) for _ in range(nblocks)])
+                  ).reshape(-1) for _ in range(D)]
+    else:
+        perms = [rng.permutation(mps) for _ in range(D)]
     us = [rng.uniform(size=mps) for _ in range(D)]
     zs = [rng.normal(size=mps) for _ in range(D)]
 
     oracle.sweep_replay_sharded(
         ost, a, b, napad, mave, msig, gidx, cva, cvai,
-        blocks_glob, perms, us, zs, B, n,
+        blocks_glob, perms, us, zs, B, n, wave=wave,
     )
 
     # --- device side: same inputs laid out as D padded shards ------------
@@ -163,6 +166,13 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
         n_total=jnp.asarray(float(n), f32),
         m_local=jnp.asarray([ln for _, ln in blocks_glob], np.int32),
     )
+    if wave > 1:
+        cache_fn = jax.jit(jax.shard_map(
+            lambda bb, nn: build_gram_cache(bb, nn, block_size=B,
+                                            shared_na=True),
+            mesh=mesh, in_specs=(P(MARKER_AXIS), P()),
+            out_specs=P(MARKER_AXIS)))
+        static = static.replace(gram_cache=cache_fn(static.bed, static.na))
 
     blocks_dev = jnp.asarray(
         np.stack([p.reshape(nblocks, B) for p in perms])
@@ -179,7 +189,7 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
         eps, betas, comp, acum, cass_local = marker_sweep(
             eps, betas, comp, acum, sigmag, sigmae, pi_est,
             static, blocks, u_all, z_all, axis_name=MARKER_AXIS,
-            use_pallas=use_pallas, wave_size=1)
+            shared_na=True, wave_size=wave)
         return eps, betas, comp, acum, jax.lax.psum(cass_local, MARKER_AXIS)
 
     sh = P(MARKER_AXIS)
@@ -187,10 +197,9 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
     rep = P()
     sweep_sh = jax.jit(jax.shard_map(
         sweep, mesh=mesh,
-        in_specs=(rep, sh2, sh2, sh2, rep, rep, rep, _static_specs(),
-                  sh, sh, sh),
+        in_specs=(rep, sh2, sh2, sh2, rep, rep, rep,
+                  _static_specs(wave > 1), sh, sh, sh),
         out_specs=(rep, sh2, sh2, sh2, rep),
-        check_vma=not use_pallas,
     ))
     eps_j, betas_j, comp_j, acum_j, cass_j = sweep_sh(
         jnp.asarray(to_phase_planes(ost.eps * 0 + ph.epsilon_padded())[None],
@@ -219,16 +228,15 @@ def test_sharded_sweep_matches_replay_oracle(sim_small, block_size,
 
 
 @needs_8
-def test_sharded_pallas_wave_full_run(sim_medium, tmp_path):
-    """Full sharded training through the production TPU configuration —
-    use_pallas + wave_size > 1 under shard_map (parallel/runner.py:426-434),
-    kernels in interpret mode on the CPU mesh.  Checks the combination
-    compiles, executes, and produces a statistically sane short chain
-    vs the XLA sharded path."""
+def test_sharded_wave_full_run(sim_medium, tmp_path):
+    """Full sharded training through the production configuration — wave
+    size > 1 with the per-shard Gram cache under shard_map.  Checks the
+    combination compiles, executes, and produces a statistically sane
+    short chain vs the exact-serial sharded path."""
     from gmrm_tpu.parallel.runner import run_training_sharded
 
     opt_p = _opts(sim_medium, str(tmp_path / "outp"), iterations=15,
-                  use_pallas=True, wave_size=4)
+                  wave_size=4)
     res_p = run_training_sharded(opt_p, verbose=False)
 
     opt_x = _opts(sim_medium, str(tmp_path / "outx"), iterations=15)
@@ -277,7 +285,7 @@ def test_entry_compiles():
 
 @needs_8
 def test_verbosity_gates_detail_and_sync_split(sim_tiny, tmp_path, capsys):
-    """--verbosity wiring (VERDICT r3 item 6): level 0 suppresses the
+    """--verbosity wiring: level 0 suppresses the
     per-iteration timing + NA detail; level >= 1 restores the iteration
     print with the reference's "with sync time" split
     (bayes.cpp:653-655); level >= 2 restores per-phen NA counts
@@ -310,7 +318,7 @@ def test_verbosity_gates_detail_and_sync_split(sim_tiny, tmp_path, capsys):
 
 def test_sync_split_in_step_differential(sim_tiny, tmp_path, capsys):
     """verbosity >= 2 on the sharded runner measures the sync split
-    differentially IN-STEP (VERDICT r4 weak item 6): the real jitted step
+    differentially IN-STEP: the real jitted step
     vs an identically-gated compile with the collectives elided, on
     cloned state.  The measurement must not perturb the chain."""
     from gmrm_tpu.parallel.runner import run_training_sharded
@@ -332,7 +340,7 @@ def test_sync_split_in_step_differential(sim_tiny, tmp_path, capsys):
 
 @needs_8
 def test_sharded_cached_gram_matches_recompute(sim_small):
-    """The per-shard Gram cache (VERDICT r3 item 1) under shard_map: the
+    """The per-shard Gram cache under shard_map: the
     cached-Gram sharded sweep must reproduce the recompute sharded sweep
     exactly (same block-preserving shuffle, same per-block psum cadence)
     — discrete choices equal, continuous state to f32 tolerance."""
@@ -342,7 +350,7 @@ def test_sharded_cached_gram_matches_recompute(sim_small):
     from gmrm_tpu.io.grouping import read_dim, read_group_index
     from gmrm_tpu.io.phen import read_phen
     from gmrm_tpu.ops.decode import to_phase_planes
-    from gmrm_tpu.ops.sweep_kernel import build_gram_cache
+    from gmrm_tpu.ops.blockops import build_gram_cache
     from gmrm_tpu.parallel.mesh import (
         MARKER_AXIS, make_marker_mesh, marker_blocks,
     )
@@ -403,7 +411,7 @@ def test_sharded_cached_gram_matches_recompute(sim_small):
         lambda bb, nn: build_gram_cache(bb, nn, block_size=B,
                                         shared_na=True),
         mesh=mesh, in_specs=(P(MARKER_AXIS), P()),
-        out_specs=P(MARKER_AXIS), check_vma=False))
+        out_specs=P(MARKER_AXIS)))
     gram_cache = cache_fn(bed_dev, na_dev)
 
     def make_static(cache):
@@ -429,33 +437,24 @@ def test_sharded_cached_gram_matches_recompute(sim_small):
     z_dev = jnp.asarray(rng.normal(size=(D * nblocks, 1, B)), f32)
     sigmag0 = rng.uniform(0.05, 0.5, size=G)
 
-    def make_sweep(fused):
-        def sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est, static,
-                  blocks, u_all, z_all, pi_b_d, win_d):
-            eps, betas, comp, acum, cass_local = marker_sweep(
-                eps, betas, comp, acum, sigmag, sigmae, pi_est,
-                static, blocks, u_all, z_all, axis_name=MARKER_AXIS,
-                use_pallas=True, shared_na=True, wave_size=W,
-                block_perm=(pi_b_d, win_d), fused=fused)
-            return (eps, betas, comp, acum,
-                    jax.lax.psum(cass_local, MARKER_AXIS))
-        return sweep
+    def sweep(eps, betas, comp, acum, sigmag, sigmae, pi_est, static,
+              blocks, u_all, z_all):
+        eps, betas, comp, acum, cass_local = marker_sweep(
+            eps, betas, comp, acum, sigmag, sigmae, pi_est,
+            static, blocks, u_all, z_all, axis_name=MARKER_AXIS,
+            shared_na=True, wave_size=W)
+        return (eps, betas, comp, acum,
+                jax.lax.psum(cass_local, MARKER_AXIS))
 
     sh, sh2, rep = P(MARKER_AXIS), P(None, MARKER_AXIS), P()
     outs = {}
-    # recompute composite / cached composite / cached FUSED per-block
-    # kernel (the pod production path) must all agree.
-    for name, cache, fused in (("recompute", None, False),
-                               ("cached", gram_cache, False),
-                               ("fused", gram_cache, True)):
-        sweep = make_sweep(fused)
+    # The recompute and cached-Gram sharded sweeps must agree.
+    for name, cache in (("recompute", None), ("cached", gram_cache)):
         sweep_sh = jax.jit(jax.shard_map(
             sweep, mesh=mesh,
             in_specs=(rep, sh2, sh2, sh2, rep, rep, rep,
-                      _static_specs(cache is not None),
-                      sh, sh, sh, sh, sh),
+                      _static_specs(cache is not None), sh, sh, sh),
             out_specs=(rep, sh2, sh2, sh2, rep),
-            check_vma=False,
         ))
         outs[name] = jax.device_get(sweep_sh(
             planes(ph.epsilon_padded()),
@@ -466,16 +465,13 @@ def test_sharded_cached_gram_matches_recompute(sim_small):
             jnp.asarray(pi_prior_from_cva(cva)[None], f32),
             make_static(cache),
             jnp.asarray(perm.astype(np.int32)), u_dev, z_dev,
-            jnp.asarray(pi_b.reshape(-1).astype(np.int32)),
-            jnp.asarray(win.reshape(D * nblocks, B).astype(np.int32)),
         ))
 
     (e_a, b_a, c_a, a_a, k_a) = outs["recompute"]
-    for variant in ("cached", "fused"):
-        (e_b, b_b, c_b, a_b, k_b) = outs[variant]
-        np.testing.assert_array_equal(np.asarray(c_b), np.asarray(c_a))
-        np.testing.assert_array_equal(np.asarray(k_b), np.asarray(k_a))
-        np.testing.assert_allclose(np.asarray(b_b), np.asarray(b_a),
-                                   rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(e_b), np.asarray(e_a),
-                                   rtol=1e-4, atol=1e-5)
+    (e_b, b_b, c_b, a_b, k_b) = outs["cached"]
+    np.testing.assert_array_equal(np.asarray(c_b), np.asarray(c_a))
+    np.testing.assert_array_equal(np.asarray(k_b), np.asarray(k_a))
+    np.testing.assert_allclose(np.asarray(b_b), np.asarray(b_a),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(e_b), np.asarray(e_a),
+                               rtol=1e-4, atol=1e-5)
